@@ -1,0 +1,227 @@
+"""Beam search over a navigation graph (counterpart of
+``repro/core/beam_search.py``): the numpy oracle ``beam_search_np`` and
+the multi-expansion serving engine.
+
+Each engine step expands the E best unvisited beam entries of every query
+at once, scores their E*R neighbours as one [Q, E*R] block
+(``kernels.gather_distance``) and folds the block into the sorted beam
+with rank-based merges (``merge_block``), one per expanded row.  The loop
+stops when no query has a live unvisited entry, with ``iters`` as the
+backstop; checking that costs one host sync per step.  Per-query ``hops``,
+``dist_comps`` and ``converged`` telemetry match the reference.
+"""
+from __future__ import annotations
+
+import heapq
+
+import numpy as np
+import torch
+
+from repro_torch.core.metrics import check_metric, pairwise, point_norms
+from repro_torch.kernels.gather_distance import gather_distance
+from repro_torch.kernels.topk import topf
+
+
+def default_iters(beam: int) -> int:
+    """Backstop iteration cap of the serving engine: ``beam + 4``."""
+    return beam + 4
+
+
+def medoid(x: np.ndarray, sample: int = 4096, seed: int = 0) -> int:
+    """Approximate medoid: the sample point nearest the dataset mean."""
+    rng = np.random.default_rng(seed)
+    n = x.shape[0]
+    idx = rng.choice(n, size=min(sample, n), replace=False)
+    mean = x.mean(axis=0, keepdims=True)
+    d = np.sum((x[idx] - mean) ** 2, axis=1)
+    return int(idx[np.argmin(d)])
+
+
+def _dist_np(q: np.ndarray, pts: np.ndarray, metric: str) -> np.ndarray:
+    if metric == "mips":
+        return -(pts @ q)
+    if metric == "cosine":
+        return 1.0 - (pts @ q) / np.maximum(
+            np.linalg.norm(pts, axis=1) * np.linalg.norm(q), 1e-30)
+    diff = pts - q[None, :]
+    return np.sum(diff * diff, axis=1)
+
+
+def beam_search_np(graph: np.ndarray, x: np.ndarray, q: np.ndarray, *,
+                   start: int, beam: int, metric: str = "l2",
+                   max_visits: int | None = None):
+    """Algorithm 1, one query, pointer chasing on the host (the oracle).
+    Returns (beam ids sorted by dist, dists, n_dist_comps)."""
+    d0 = float(_dist_np(q, x[start: start + 1], metric)[0])
+    frontier = [(d0, start)]
+    in_beam = {start: d0}
+    visited: set[int] = set()
+    comps = 1
+    limit = max_visits or 10 * beam
+    while frontier and len(visited) < limit:
+        d, p = heapq.heappop(frontier)
+        if p in visited or p not in in_beam:
+            continue
+        visited.add(p)
+        nbrs = graph[p]
+        nbrs = nbrs[nbrs >= 0]
+        new = [v for v in nbrs if v not in in_beam and v not in visited]
+        if new:
+            nd = _dist_np(q, x[new], metric)
+            comps += len(new)
+            for v, dv in zip(new, nd):
+                in_beam[v] = float(dv)
+                heapq.heappush(frontier, (float(dv), v))
+        if len(in_beam) > beam:
+            items = sorted(in_beam.items(), key=lambda kv: (kv[1], kv[0]))[:beam]
+            in_beam = dict(items)
+    items = sorted(in_beam.items(), key=lambda kv: (kv[1], kv[0]))
+    ids = np.asarray([v for v, _ in items], dtype=np.int64)
+    ds = np.asarray([dv for _, dv in items], dtype=np.float32)
+    return ids, ds, comps
+
+
+def _lt(d1, i1, d2, i2):
+    return (d1 < d2) | ((d1 == d2) & (i1 < i2))
+
+
+def merge_block(ids, ds, vis, bids, bds):
+    """Fold one [Q, M] candidate block into a sorted [Q, L] beam.
+
+    Candidates already in the beam, repeated in the block or padding are
+    dropped; then every valid entry's output slot is its rank on its own
+    side plus the count of smaller (dist, id) keys on the other side
+    (the beam's own rank is its slot index).  Slots past L fall off.
+    Visited flags ride along on the beam side; new entries are
+    unvisited.  The placement is a scatter instead of the reference's
+    one-hot sums, with the same result."""
+    nq, beam = ids.shape
+    m = bids.shape[1]
+    dev = ids.device
+    inf = torch.full((), float("inf"), device=dev)
+    iota_m = torch.arange(m, device=dev)
+    dup = torch.any((bids[:, :, None] == bids[:, None, :])
+                    & (iota_m[None, :] < iota_m[:, None]), dim=2)
+    beam_ids = torch.where(ids >= 0, ids, -2)
+    member = torch.any(bids[:, :, None] == beam_ids[:, None, :], dim=2)
+    bds = torch.where(dup | member | (bids < 0), inf, bds)
+    va = torch.isfinite(ds)
+    vb = torch.isfinite(bds)
+    b_lt_b = _lt(bds[:, None, :], bids[:, None, :], bds[:, :, None], bids[:, :, None])
+    rank_b = torch.sum(vb[:, None, :] & b_lt_b, dim=2, dtype=torch.int64)
+    b_lt_a = _lt(bds[:, None, :], bids[:, None, :], ds[:, :, None], ids[:, :, None])
+    iota_l = torch.arange(beam, device=dev)
+    pos_a = torch.where(va, iota_l + torch.sum(vb[:, None, :] & b_lt_a, dim=2,
+                                               dtype=torch.int64), beam)
+    pos_b = torch.where(vb, rank_b + torch.sum(va[:, :, None] & ~b_lt_a, dim=1,
+                                               dtype=torch.int64), beam)
+    pos_a, pos_b = pos_a.clamp_max(beam), pos_b.clamp_max(beam)
+    # one spare column takes everything that falls off the end
+    new_ids = torch.full((nq, beam + 1), -1, dtype=ids.dtype, device=dev)
+    new_ds = torch.full((nq, beam + 1), float("inf"), dtype=ds.dtype, device=dev)
+    new_vis = torch.zeros((nq, beam + 1), dtype=torch.bool, device=dev)
+    new_ids.scatter_(1, pos_a, ids)
+    new_ds.scatter_(1, pos_a, ds)
+    new_vis.scatter_(1, pos_a, vis)
+    new_ids.scatter_(1, pos_b, bids)
+    new_ds.scatter_(1, pos_b, bds)
+    return new_ids[:, :beam], new_ds[:, :beam], new_vis[:, :beam]
+
+
+def _live(ids, ds, vis):
+    return ~vis & (ids >= 0) & torch.isfinite(ds)
+
+
+def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
+                       iters: int, metric: str, expansions: int, early_exit: bool):
+    """Batched multi-expansion beam search core.  Returns (ids [Q, beam],
+    dists [Q, beam], hops [Q], dist_comps [Q], converged [Q])."""
+    n, r = graph.shape
+    nq = queries.shape[0]
+    dev = queries.device
+    e = max(1, min(int(expansions), beam))
+    c = e * r
+    q32 = queries.to(torch.float32).contiguous()
+    start_ids = torch.full((nq, 1), int(start), dtype=torch.int32, device=dev)
+    d0 = gather_distance(x, norms, q32, start_ids, metric)[:, 0]
+    ids = torch.full((nq, beam), -1, dtype=torch.int32, device=dev)
+    ids[:, 0] = int(start)
+    ds = torch.full((nq, beam), float("inf"), dtype=torch.float32, device=dev)
+    ds[:, 0] = d0
+    vis = torch.zeros((nq, beam), dtype=torch.bool, device=dev)
+    hops = torch.zeros(nq, dtype=torch.int32, device=dev)
+    comps = torch.ones(nq, dtype=torch.int32, device=dev)
+    rows = torch.arange(nq, device=dev)[:, None]
+    inf = torch.full((), float("inf"), device=dev)
+    for _ in range(iters):
+        if early_exit and not bool(_live(ids, ds, vis).any()):
+            break
+        # the E best unvisited beam slots; picks at +inf are marked visited
+        # too, as in the reference
+        masked = torch.where(vis | (ids < 0), inf, ds)
+        pos = topf(masked, e).long()
+        valid_e = torch.isfinite(torch.gather(masked, 1, pos))
+        vis[rows, pos] = True
+        p = torch.gather(ids, 1, pos)
+        nbr = graph[torch.where(valid_e, p, -1).clamp_min(0).long()]   # [Q, E, R]
+        ok = (nbr >= 0) & valid_e[:, :, None]
+        cids = torch.where(ok, nbr, -1).reshape(nq, c)
+        cds = gather_distance(x, norms, q32, cids, metric)
+        hops += valid_e.sum(dim=1, dtype=torch.int32)
+        comps += (cids >= 0).sum(dim=1, dtype=torch.int32)
+        for j in range(e):
+            sl = slice(j * r, (j + 1) * r)
+            ids, ds, vis = merge_block(ids, ds, vis, cids[:, sl], cds[:, sl])
+    converged = ~torch.any(_live(ids, ds, vis), dim=1)
+    return ids, ds, hops, comps, converged
+
+
+def beam_search_batch(graph, x, queries, *, start: int, beam: int,
+                      iters: int | None = None, metric: str = "l2",
+                      expansions: int = 4, norms=None, early_exit: bool = True,
+                      with_stats: bool = False):
+    """Batched multi-expansion beam search over tensors on one device.
+    Returns (ids, dists) [Q, beam], or with ``with_stats`` also
+    (hops, dist_comps, converged)."""
+    check_metric(metric)
+    if iters is None:
+        iters = default_iters(beam)
+    if norms is None:
+        norms = point_norms(x, metric)
+    ids, ds, hops, comps, converged = _beam_search_multi(
+        graph, x, norms, queries, start, beam=beam, iters=int(iters),
+        metric=metric, expansions=int(expansions), early_exit=bool(early_exit))
+    if with_stats:
+        return ids, ds, hops, comps, converged
+    return ids, ds
+
+
+def pad_ids(ids: np.ndarray, k: int) -> np.ndarray:
+    """Truncate / -1-pad a [Q, *] id matrix to exactly [Q, k]."""
+    ids = np.asarray(ids)[:, :k]
+    if ids.shape[1] < k:
+        ids = np.pad(ids, ((0, 0), (0, k - ids.shape[1])), constant_values=-1)
+    return ids
+
+
+def recall_at_k(found: np.ndarray, truth: np.ndarray, k: int = 10) -> float:
+    """Mean k@k recall over queries (set semantics: a found id scores once)."""
+    f = np.asarray(found)[:, :k]
+    t = np.asarray(truth)[:, :k]
+    kf = f.shape[1]
+    earlier = np.tril(np.ones((kf, kf), dtype=bool), -1)
+    dup = np.any((f[:, :, None] == f[:, None, :]) & earlier[None], axis=2)
+    in_t = np.any(f[:, :, None] == t[:, None, :], axis=2)
+    hits = int(np.sum(in_t & ~dup))
+    return hits / (len(found) * k)
+
+
+def brute_force_knn(x: torch.Tensor, queries: torch.Tensor, k: int,
+                    metric: str = "l2", chunk: int = 1024) -> np.ndarray:
+    """Exact k-NN ground truth [Q, k] (int64, on the host) by chunked GEMM
+    on the device holding ``x``; ties go to the lower id."""
+    out = np.empty((queries.shape[0], k), dtype=np.int64)
+    for s in range(0, queries.shape[0], chunk):
+        d = pairwise(queries[s: s + chunk], x, metric)
+        out[s: s + chunk] = topf(d, k).cpu().numpy()
+    return out

@@ -1,0 +1,83 @@
+"""RobustPrune (counterpart of ``repro/core/robust_prune.py``): the
+batch-vectorised greedy over candidate ranks, and PiPNN's final pass
+(Sec. 4.3) that prunes every point's HashPrune reservoir.
+
+The reference's ``lax.scan`` over candidate ranks is a Python loop over
+the ``l_max`` ranks here, each step one set of tensor operations over all
+rows at once.  Rows are independent, so the chunk size of ``final_prune``
+changes no result; the output is written into preallocated [n, max_deg]
+tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashprune import INVALID_ID, Reservoir
+from repro_torch.core.metrics import pairwise
+from repro_torch.kernels.topk import lex_key, ordered, stable_argsort
+
+
+def robust_prune_mask(d_pc: torch.Tensor, d_cc: torch.Tensor,
+                      cand_ids: torch.Tensor, *, alpha: float = 1.2,
+                      max_deg: int = 64) -> torch.Tensor:
+    """Vectorised RobustPrune.  ``d_pc`` [B, C] point->candidate (+inf
+    invalid), ``d_cc`` [B, C, C] candidate->candidate, ``cand_ids`` [B, C]
+    for the (dist, id) order.  Returns the keep mask [B, C]."""
+    bsz, c = d_pc.shape
+    dev = d_pc.device
+    big = torch.where(cand_ids == INVALID_ID, 2 ** 30, cand_ids)
+    order = stable_argsort(lex_key(ordered(d_pc), big))
+    finite_sorted = torch.isfinite(torch.gather(d_pc, 1, order))
+    alpha_t = torch.tensor(alpha, dtype=torch.float32, device=dev)
+    alive = torch.isfinite(d_pc)
+    keep = torch.zeros_like(alive)
+    count = torch.zeros(bsz, dtype=torch.int32, device=dev)
+    b = torch.arange(bsz, device=dev)
+    for r in range(c):
+        j = order[:, r]
+        valid = finite_sorted[:, r] & alive[b, j] & (count < max_deg)
+        keep[b, j] |= valid
+        count += valid.to(torch.int32)
+        # dominance: alpha * d(j, c) <= d(p, c), on the stored dissimilarity
+        dom = alpha_t * d_cc[b, j, :] <= d_pc
+        alive &= ~(dom & valid[:, None])
+    return keep
+
+
+def prune_reservoir_block(ids: torch.Tensor, dists: torch.Tensor,
+                          d_cc: torch.Tensor, *, alpha: float, max_deg: int):
+    """RobustPrune a reservoir block [B, L]; returns ([B, max_deg] ids with
+    -1 padding, [B, max_deg] dists with +inf padding), rows sorted by
+    (dist, id)."""
+    inf = torch.full((), float("inf"), device=dists.device)
+    d_pc = torch.where(ids == INVALID_ID, inf, dists)
+    keep = robust_prune_mask(d_pc, d_cc, ids, alpha=alpha, max_deg=max_deg)
+    k_d = torch.where(keep, d_pc, inf)
+    q = stable_argsort(lex_key(ordered(k_d), ids))
+    s_d, s_i = torch.gather(k_d, 1, q), torch.gather(ids, 1, q)
+    l = ids.shape[-1]
+    if l >= max_deg:
+        s_d, s_i = s_d[:, :max_deg], s_i[:, :max_deg]
+    else:
+        pf = torch.nn.functional.pad
+        s_d = pf(s_d, (0, max_deg - l), value=float("inf"))
+        s_i = pf(s_i, (0, max_deg - l), value=INVALID_ID)
+    return torch.where(torch.isfinite(s_d), s_i, INVALID_ID), s_d
+
+
+def final_prune(x: torch.Tensor, res: Reservoir, *, alpha: float = 1.2,
+                max_deg: int = 64, metric: str = "l2", chunk: int = 16384):
+    """Sec. 4.3 final pass: RobustPrune every reservoir, ``chunk`` rows at a
+    time, into [n, max_deg] (int32 adjacency with -1 padding, float32
+    dists with +inf padding) on ``x``'s device."""
+    n = res.ids.shape[0]
+    chunk = max(1, min(chunk, n))
+    out_ids = torch.full((n, max_deg), INVALID_ID, dtype=torch.int32, device=x.device)
+    out_d = torch.full((n, max_deg), float("inf"), dtype=torch.float32, device=x.device)
+    for s in range(0, n, chunk):
+        ids = res.ids[s:s + chunk]
+        cvecs = x[ids.clamp_min(0).long()]                   # [chunk, L, d]
+        d_cc = pairwise(cvecs, cvecs, metric)
+        out_ids[s:s + chunk], out_d[s:s + chunk] = prune_reservoir_block(
+            ids, res.dists[s:s + chunk], d_cc, alpha=alpha, max_deg=max_deg)
+    return out_ids, out_d

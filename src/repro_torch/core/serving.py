@@ -1,0 +1,110 @@
+"""Device-resident query serving (counterpart of ``repro/core/serving.py``,
+float32 packing only).
+
+``ServingIndex`` packs what the query path touches onto the device once:
+the [n, R] int32 adjacency, the [n, d] float32 points, their metric norms
+(``metrics.point_norms``) and the entry point.  A ``search`` call then moves
+nothing but the queries in and the ids out, and runs the multi-expansion
+beam search (``beam_search.beam_search_batch``).  The reference's
+VMEM-vs-HBM kernel selection has no counterpart on the card: one gather
+kernel reads the points from device memory.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core import beam_search as _bs
+from repro_torch.core.metrics import point_norms
+from repro_torch.core.validation import validate_queries, validate_search_params
+from repro_torch.device import resolve_device
+
+
+def _to_device(a, dtype, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=dtype).contiguous()
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+@dataclasses.dataclass
+class ServingIndex:
+    graph: torch.Tensor    # [n, R] int32, -1 padded, on the device
+    points: torch.Tensor   # [n, d] float32 on the device
+    norms: torch.Tensor    # [n] float32 point norms (metrics.point_norms)
+    start: int             # entry point (medoid)
+    metric: str = "l2"
+
+    @property
+    def n(self) -> int:
+        return self.graph.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    def device_bytes(self) -> int:
+        """Device-resident footprint of the packing (graph + points + norms)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.graph, self.points, self.norms))
+
+    @classmethod
+    def from_graph(cls, graph, x, start: int, *, metric: str = "l2", device=None):
+        """Pack an adjacency matrix and its points (numpy arrays or tensors)
+        onto ``device`` (default: the card, raising without one)."""
+        dev = resolve_device(device)
+        points = _to_device(x, torch.float32, dev)
+        return cls(graph=_to_device(graph, torch.int32, dev), points=points,
+                   norms=point_norms(points, metric), start=int(start),
+                   metric=metric)
+
+    @classmethod
+    def from_index(cls, index, x, *, device=None):
+        """Pack a ``PiPNNIndex`` over its dataset ``x``."""
+        return cls.from_graph(index.graph, x, index.start,
+                              metric=index.params.metric, device=device)
+
+    def search(self, queries, *, k: int = 10, beam: int = 32, expansions: int = 4,
+               iters: int | None = None, early_exit: bool = True,
+               query_chunk: int | None = None, with_stats: bool = False):
+        """Serve a query batch; returns [Q, k] neighbour ids (int64 numpy,
+        -1-padded when fewer than ``k`` are found).
+
+        ``query_chunk`` bounds the batch per engine run; a short last chunk
+        is zero-padded to the chunk's shape, as in the reference.
+        ``with_stats=True`` also returns per-query ``hops``, ``dist_comps``
+        and ``converged`` telemetry.  NaN/Inf rows, a wrong width, or
+        ``k``/``beam`` below 1 raise at this boundary."""
+        validate_search_params(k=k, beam=beam)
+        if query_chunk is not None and int(query_chunk) <= 0:
+            raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
+        q = validate_queries(queries, dim=int(self.points.shape[1]))
+        nq = q.shape[0]
+        iters_cap = int(iters if iters is not None else _bs.default_iters(beam))
+        parts: dict[str, list] = {"ids": [np.full((0, k), -1)],
+                                  "hops": [np.empty(0, np.int32)],
+                                  "dist_comps": [np.empty(0, np.int32)],
+                                  "converged": [np.empty(0, bool)]}
+        chunk = int(query_chunk) if query_chunk else max(nq, 1)
+        for s in range(0, nq, chunk):
+            qc = q[s: s + chunk]
+            take = qc.shape[0]
+            if take < chunk:
+                qc = np.pad(qc, ((0, chunk - take), (0, 0)))
+            ids, _, hops, comps, conv = _bs.beam_search_batch(
+                self.graph, self.points, torch.from_numpy(qc).to(self.device),
+                start=self.start, beam=beam, iters=iters_cap, metric=self.metric,
+                expansions=expansions, norms=self.norms, early_exit=early_exit,
+                with_stats=True)
+            parts["ids"].append(_bs.pad_ids(ids[:take].cpu().numpy(), k))
+            for key, val in zip(("hops", "dist_comps", "converged"), (hops, comps, conv)):
+                parts[key].append(val[:take].cpu().numpy())
+        out = np.concatenate(parts["ids"]).astype(np.int64)
+        if not with_stats:
+            return out
+        stats: dict[str, Any] = {key: np.concatenate(parts[key])
+                                 for key in ("hops", "dist_comps", "converged")}
+        stats.update(expansions=int(expansions), iters_cap=iters_cap)
+        return out, stats

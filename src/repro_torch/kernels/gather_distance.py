@@ -1,0 +1,73 @@
+"""Fused neighbour gather + distance block for the beam search.
+
+Replaces both Pallas kernels ``repro/kernels/gather_distance.py::
+gather_distance`` (points resident in VMEM, ``pallas_call`` at ``:179``)
+and ``::gather_distance_hbm`` (points streamed from HBM, ``:407``).  The
+card has one memory to read the rows from, so the VMEM-vs-HBM split and its
+budget have no counterpart: one CUDA kernel (``csrc/gather_distance.cu``)
+serves both.  One block per query keeps the query in shared memory; each
+warp reads a neighbour row with coalesced 16-byte loads, reduces the dot
+product with shuffles and applies the norm expansion with the precomputed
+point norms (``core.metrics.point_norms``).  Padding ids give +inf.
+
+Bound on the card: bytes, a randomly gathered d*4-byte row for each
+distinct valid id (padding reads nothing).  Four neighbour rows are in
+flight per warp to cover the latency of the random reads.  The plain version is the oracle
+``repro/kernels/ref.py::gather_distance_ref``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.metrics import check_metric, clamp_zero
+from repro_torch.kernels import _build
+
+METRIC_CODES = {"l2": 0, "mips": 1, "cosine": 2}
+
+launches = 0   # kernel launches since the last reset
+
+
+def gather_distance_plain(points, norms, queries, nbr_ids, metric: str = "l2"):
+    """Plain PyTorch version of ``gather_distance``; runs on any device."""
+    check_metric(metric)
+    q32 = queries.to(torch.float32)
+    safe = nbr_ids.clamp_min(0).long()
+    g = points[safe].to(torch.float32)                      # [Q, C, d]
+    ip = torch.sum(q32[:, None, :] * g, dim=-1)
+    if metric == "mips":
+        d = -ip
+    elif metric == "cosine":
+        qn = torch.linalg.vector_norm(q32, dim=-1)
+        d = 1.0 - ip / torch.clamp_min(qn[:, None] * norms[safe], 1e-30)
+    else:
+        q2 = torch.sum(q32 * q32, dim=-1)
+        d = clamp_zero(q2[:, None] + norms[safe] - 2.0 * ip)
+    return torch.where(nbr_ids >= 0, d, torch.full((), float("inf"), device=d.device))
+
+
+def gather_distance(points, norms, queries, nbr_ids, metric: str = "l2"):
+    """Distance block [Q, C] float32 between ``queries`` [Q, d] and the rows
+    ``points[nbr_ids]`` ([n, d] float32, ids [Q, C] int32, -1 = padding ->
+    +inf), with ``norms`` [n] from ``point_norms``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    global launches
+    check_metric(metric)
+    if points.device.type == "cpu":
+        return gather_distance_plain(points, norms, queries, nbr_ids, metric)
+    if (points.dtype != torch.float32 or norms.dtype != torch.float32
+            or queries.dtype != torch.float32 or nbr_ids.dtype != torch.int32):
+        raise TypeError("gather_distance takes float32 points/norms/queries, int32 ids")
+    nq, c = nbr_ids.shape
+    n, d = points.shape
+    if queries.shape != (nq, d) or norms.shape != (n,):
+        raise ValueError("gather_distance: shapes of queries/norms do not match")
+    _build.require_cuda("gather_distance", points, norms, queries, nbr_ids)
+    if points.data_ptr() % 16:
+        raise ValueError("gather_distance: points must be 16-byte aligned (16-byte row loads)")
+    out = torch.empty((nq, c), dtype=torch.float32, device=points.device)
+    rc = _build.library().pipnn_gather_distance(
+        points.data_ptr(), norms.data_ptr(), queries.data_ptr(), nbr_ids.data_ptr(),
+        n, d, nq, c, METRIC_CODES[metric], out.data_ptr(), _build.stream_ptr(points))
+    _build.check(rc, "gather_distance")
+    launches += 1
+    return out

@@ -1,0 +1,93 @@
+"""Leaf k-NN with a running top-k (FlashKNN), with its own row gather.
+
+Replaces the Pallas kernel ``repro/kernels/leaf_knn.py::leaf_topk``
+(``pallas_call`` at ``:114``), which computes the default leaf k-NN
+contract of ``repro/core/leaf.py::leaf_knn_jax``.  The CUDA kernel
+(``csrc/leaf_knn.cu``) takes the leaves as ids and gathers its own rows,
+fusing the reference step's ``xj[ids]`` gather: at n = 1M a stream chunk's
+gathered [chunk, c_max, d] block would be about 8 GB.
+
+Bound on the card: operations, 2*C^2*d f32 FLOPs per leaf of C valid
+points at the CUDA-core rate (no TF32, so the result is the float32 one).
+The kernel never writes the [C, C] matrix; each 64x64 tile lives in
+registers and is folded into per-row running top-k lists, and tiles that
+hold no valid column are skipped.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.metrics import pairwise
+from repro_torch.kernels import _build
+from repro_torch.kernels.topk import topf
+
+METRIC_CODES = {"l2": 0, "mips": 1, "cosine": 2}
+MAX_K = 8
+
+launches = 0   # kernel launches since the last reset
+
+
+def leaf_topk_plain(points: torch.Tensor, leaf_ids: torch.Tensor, k: int,
+                    metric: str = "l2", *, block: int = 8):
+    """Plain PyTorch version of ``leaf_topk``; runs on any device.
+
+    Works ``block`` leaves at a time and crops each block to its last
+    valid column (columns past it are all padding, so the result is the
+    same)."""
+    nb, c = leaf_ids.shape
+    dev = points.device
+    out_idx = torch.full((nb, c, k), -1, dtype=torch.int32, device=dev)
+    out_dist = torch.full((nb, c, k), float("inf"), dtype=torch.float32, device=dev)
+    col = torch.arange(c, device=dev)
+    for s in range(0, nb, block):
+        ids = leaf_ids[s:s + block]
+        valid = ids >= 0
+        width = int(torch.max(torch.where(valid, col + 1, 0)).item()) if ids.numel() else 0
+        if width == 0:
+            continue
+        ids, valid = ids[:, :width], valid[:, :width]
+        pts = points[ids.clamp_min(0).long()]
+        d = pairwise(pts, pts, metric)
+        eye = torch.eye(width, dtype=torch.bool, device=dev)
+        mask = valid[:, None, :] & valid[:, :, None] & ~eye
+        d = torch.where(mask, d, torch.full((), float("inf"), device=dev))
+        kk = min(k, width)
+        idx = topf(d, kk)
+        nd = torch.gather(d, 2, idx.long())
+        ok = torch.isfinite(nd)
+        out_idx[s:s + block, :width, :kk] = torch.where(ok, idx, -1)
+        out_dist[s:s + block, :width, :kk] = torch.where(
+            ok, nd, torch.full((), float("inf"), device=dev))
+    return out_idx, out_dist
+
+
+def leaf_topk(points: torch.Tensor, leaf_ids: torch.Tensor, k: int,
+              metric: str = "l2"):
+    """Per leaf, each point's k nearest co-leaf points.
+
+    ``points`` [n, d] float32, ``leaf_ids`` [B, C] int32 with -1 padding.
+    Returns (in-leaf positions [B, C, k] int32, dists [B, C, k] float32),
+    (-1, +inf) where a row has no valid neighbour left; ties go to the
+    lower position.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    global launches
+    if metric not in METRIC_CODES:
+        raise ValueError(f"unknown metric {metric!r}")
+    if points.device.type == "cpu":
+        return leaf_topk_plain(points, leaf_ids, k, metric)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"leaf_topk supports 1 <= k <= {MAX_K}, got {k}")
+    if points.dtype != torch.float32 or leaf_ids.dtype != torch.int32:
+        raise TypeError("leaf_topk takes float32 points and int32 leaf ids")
+    _build.require_cuda("leaf_topk", points, leaf_ids)
+    nb, c = leaf_ids.shape
+    n, d = points.shape
+    out_idx = torch.empty((nb, c, k), dtype=torch.int32, device=points.device)
+    out_dist = torch.empty((nb, c, k), dtype=torch.float32, device=points.device)
+    rc = _build.library().pipnn_leaf_topk(
+        points.data_ptr(), leaf_ids.data_ptr(), n, d, nb, c, k,
+        METRIC_CODES[metric], out_idx.data_ptr(), out_dist.data_ptr(),
+        _build.stream_ptr(points))
+    _build.check(rc, "leaf_topk")
+    launches += 1
+    return out_idx, out_dist

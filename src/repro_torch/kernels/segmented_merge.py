@@ -1,0 +1,83 @@
+"""Bounded per-row merge of two sorted HashPrune reservoirs, R(A u B).
+
+Replaces the Pallas kernel
+``repro/kernels/segmented_merge.py::merge_sorted_reservoirs``
+(``pallas_call`` at ``:104``).  Both inputs are [n, l] reservoirs whose
+rows are sorted by (dist, id) with one slot per hash bucket and
+(-1, 0, +inf) padding at the tail.  The CUDA kernel
+(``csrc/segmented_merge.cu``) gives each row one warp: cross-side bucket
+dedup (the strictly smaller key wins, exact ties keep A), then rank
+placement (own-side survivor rank plus the other side's smaller keys),
+truncation to l and padding.  It writes the result over A in place, as the
+reference's fused step donates the reservoir.
+
+Bound on the card: bytes, 6 [n, l] arrays read and 3 written.  The O(l^2)
+compares per row run on shared-memory broadcasts inside the warp.  Only
+comparisons and copies: bit-exact.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.topk import lex_key, ordered, stable_argsort
+
+launches = 0   # kernel launches since the last reset
+_PLAIN_ROWS = 65536   # rows per step of the plain version ([rows, l, l] compares)
+
+
+def merge_sorted_reservoirs_plain(a_ids, a_hashes, a_dists,
+                                  b_ids, b_hashes, b_dists):
+    """Plain PyTorch version (sort-based, after
+    ``repro/kernels/ref.py::merge_sorted_reservoirs_ref``); returns new
+    (ids, hashes, dists) and runs on any device, ``_PLAIN_ROWS`` rows at a time."""
+    rows = _PLAIN_ROWS
+    n, l = a_ids.shape
+    out = (torch.empty_like(a_ids), torch.empty_like(a_hashes),
+           torch.empty_like(a_dists))
+    inf = torch.full((), float("inf"), device=a_dists.device)
+    for s in range(0, n, rows):
+        ai, ah, ad = a_ids[s:s + rows], a_hashes[s:s + rows], a_dists[s:s + rows]
+        bi, bh, bd = b_ids[s:s + rows], b_hashes[s:s + rows], b_dists[s:s + rows]
+        va, vb = ai != -1, bi != -1
+        b_lt_a = ((bd[:, None, :] < ad[:, :, None])
+                  | ((bd[:, None, :] == ad[:, :, None])
+                     & (bi[:, None, :] < ai[:, :, None])))          # [r, lA, lB]
+        collide = ((ah[:, :, None] == bh[:, None, :])
+                   & va[:, :, None] & vb[:, None, :])
+        keep_a = va & ~torch.any(collide & b_lt_a, dim=2)
+        keep_b = vb & ~torch.any(collide & ~b_lt_a, dim=1)
+        keep = torch.cat([keep_a, keep_b], dim=1)
+        ids = torch.where(keep, torch.cat([ai, bi], dim=1), -1)
+        hs = torch.where(keep, torch.cat([ah, bh], dim=1), 0)
+        ds = torch.where(keep, torch.cat([ad, bd], dim=1), inf)
+        order = stable_argsort(lex_key(ordered(ds), ids), dim=1)[:, :l]
+        out[0][s:s + rows] = torch.gather(ids, 1, order)
+        out[1][s:s + rows] = torch.gather(hs, 1, order)
+        out[2][s:s + rows] = torch.gather(ds, 1, order)
+    return out
+
+
+def merge_sorted_reservoirs(a_ids, a_hashes, a_dists, b_ids, b_hashes, b_dists):
+    """R(A u B) for two per-row-sorted [n, l] reservoirs (int32 ids, int32
+    hashes, float32 dists).  Returns (ids, hashes, dists).  CPU tensors take
+    the plain version; CUDA tensors launch the kernel, which merges into the
+    A arrays in place and returns them."""
+    global launches
+    if a_ids.device.type == "cpu":
+        return merge_sorted_reservoirs_plain(a_ids, a_hashes, a_dists,
+                                             b_ids, b_hashes, b_dists)
+    arrays = (a_ids, a_hashes, a_dists, b_ids, b_hashes, b_dists)
+    if any(t.shape != a_ids.shape for t in arrays):
+        raise ValueError("merge_sorted_reservoirs: all six arrays must be [n, l]")
+    if (a_ids.dtype != torch.int32 or b_ids.dtype != torch.int32
+            or a_hashes.dtype != torch.int32 or b_hashes.dtype != torch.int32
+            or a_dists.dtype != torch.float32 or b_dists.dtype != torch.float32):
+        raise TypeError("merge_sorted_reservoirs takes int32 ids/hashes, float32 dists")
+    _build.require_cuda("merge_sorted_reservoirs", *arrays)
+    n, l = a_ids.shape
+    rc = _build.library().pipnn_merge_sorted_reservoirs(
+        *(t.data_ptr() for t in arrays), n, l, _build.stream_ptr(a_ids))
+    _build.check(rc, "merge_sorted_reservoirs")
+    launches += 1
+    return a_ids, a_hashes, a_dists

@@ -30,3 +30,10 @@ def no_implicit_transfers():
             yield
 
     return guard
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the CUDA kernels have no CPU mode); "
+        "the test skips itself when none is present")
