@@ -1,5 +1,6 @@
-"""repro_torch: PiPNN's streaming build and float32 search in PyTorch, with
-hand-written CUDA kernels for NVIDIA Hopper.
+"""repro_torch: PiPNN's streaming build and its search over float32,
+bfloat16 or int8 serving copies in PyTorch, with hand-written CUDA kernels
+for NVIDIA Hopper.
 
 This package is the port of the JAX package ``repro`` (which stays the
 reference); its module names follow ``repro``'s.  It imports neither JAX

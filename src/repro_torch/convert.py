@@ -2,9 +2,9 @@
 
 The system has no weights; what crosses between the packages is the
 dataset, the RBC leaves, the hyperplanes or sketches, the HashPrune
-reservoir and the built graph.  These functions take that state as numpy
-arrays (never objects of the JAX package) and return the port's
-counterparts on ``device`` (default: the card).  Leaves and hyperplanes go
+reservoir, the built graph and a serving packing.  These functions take
+that state as numpy arrays (never objects of the JAX package) and return
+the port's counterparts on ``device`` (default: the card).  Leaves and hyperplanes go
 straight to ``pipnn.build(leaves=..., hyperplanes=...)``.
 """
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.hashprune import Reservoir
 from repro_torch.core.pipnn import PiPNNIndex, PiPNNParams
+from repro_torch.core.serving import ServingIndex
 from repro_torch.device import resolve_device
 
 
@@ -38,3 +39,20 @@ def reservoir_from_arrays(ids, hashes, dists, device=None) -> Reservoir:
     return Reservoir(ids=_tensor(ids, torch.int32, dev),
                      hashes=_tensor(hashes, torch.int32, dev),
                      dists=_tensor(dists, torch.float32, dev))
+
+
+def serving_index_from_arrays(graph, points, norms, start: int, *, scales=None,
+                              metric: str = "l2", device=None) -> ServingIndex:
+    """A ``ServingIndex`` holding a given packing as it is: [n, R] graph,
+    [n, d] points (float32, or the int8 packing with its [n] float32
+    ``scales``), [n] float32 norms and the entry point.  This serves the
+    reference's own int8 packing without quantizing again."""
+    dev = resolve_device(device)
+    int8 = np.asarray(points).dtype == np.int8
+    if int8 and scales is None:
+        raise ValueError("int8 points need their scales")
+    pts = _tensor(points, torch.int8 if int8 else torch.float32, dev)
+    return ServingIndex(graph=_tensor(graph, torch.int32, dev), points=pts,
+                        norms=_tensor(norms, torch.float32, dev), start=int(start),
+                        metric=metric,
+                        scales=None if scales is None else _tensor(scales, torch.float32, dev))

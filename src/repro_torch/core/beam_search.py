@@ -4,7 +4,9 @@ the multi-expansion serving engine.
 
 Each engine step expands the E best unvisited beam entries of every query
 at once, scores their E*R neighbours as one [Q, E*R] block
-(``kernels.gather_distance``) and folds the block into the sorted beam
+(``kernels.gather_distance`` on float32 or bfloat16 points,
+``kernels.gather_distance_int8`` on the int8 packing) and folds the block
+into the sorted beam
 with rank-based merges (``merge_block``), one per expanded row.  The loop
 stops when no query has a live unvisited entry, with ``iters`` as the
 backstop; checking that costs one host sync per step.  Per-query ``hops``,
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch.core.metrics import check_metric, pairwise, point_norms
 from repro_torch.kernels.gather_distance import gather_distance
+from repro_torch.kernels.gather_distance_int8 import gather_distance_int8
 from repro_torch.kernels.topk import topf
 
 
@@ -133,17 +136,30 @@ def _live(ids, ds, vis):
 
 
 def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
-                       iters: int, metric: str, expansions: int, early_exit: bool):
+                       iters: int, metric: str, expansions: int, early_exit: bool,
+                       scales=None):
     """Batched multi-expansion beam search core.  Returns (ids [Q, beam],
-    dists [Q, beam], hops [Q], dist_comps [Q], converged [Q])."""
+    dists [Q, beam], hops [Q], dist_comps [Q], converged [Q]).  With
+    ``scales`` the points are the int8 packing and every distance block
+    comes from the int8 kernel."""
     n, r = graph.shape
     nq = queries.shape[0]
     dev = queries.device
     e = max(1, min(int(expansions), beam))
     c = e * r
     q32 = queries.to(torch.float32).contiguous()
+    if scales is not None:
+        # the query norm terms are computed once per batch and passed to
+        # every step as data, as in the reference
+        q_norms = point_norms(q32, metric)
+
+        def dist(ids):
+            return gather_distance_int8(x, scales, norms, q32, q_norms, ids, metric)
+    else:
+        def dist(ids):
+            return gather_distance(x, norms, q32, ids, metric)
     start_ids = torch.full((nq, 1), int(start), dtype=torch.int32, device=dev)
-    d0 = gather_distance(x, norms, q32, start_ids, metric)[:, 0]
+    d0 = dist(start_ids)[:, 0]
     ids = torch.full((nq, beam), -1, dtype=torch.int32, device=dev)
     ids[:, 0] = int(start)
     ds = torch.full((nq, beam), float("inf"), dtype=torch.float32, device=dev)
@@ -166,7 +182,7 @@ def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
         nbr = graph[torch.where(valid_e, p, -1).clamp_min(0).long()]   # [Q, E, R]
         ok = (nbr >= 0) & valid_e[:, :, None]
         cids = torch.where(ok, nbr, -1).reshape(nq, c)
-        cds = gather_distance(x, norms, q32, cids, metric)
+        cds = dist(cids)
         hops += valid_e.sum(dim=1, dtype=torch.int32)
         comps += (cids >= 0).sum(dim=1, dtype=torch.int32)
         for j in range(e):
@@ -178,19 +194,36 @@ def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
 
 def beam_search_batch(graph, x, queries, *, start: int, beam: int,
                       iters: int | None = None, metric: str = "l2",
-                      expansions: int = 4, norms=None, early_exit: bool = True,
-                      with_stats: bool = False):
+                      expansions: int = 4, norms=None, scales=None,
+                      early_exit: bool = True, with_stats: bool = False):
     """Batched multi-expansion beam search over tensors on one device.
     Returns (ids, dists) [Q, beam], or with ``with_stats`` also
-    (hops, dist_comps, converged)."""
+    (hops, dist_comps, converged).
+
+    ``scales`` switches on int8 serving: ``x`` must then be the int8
+    packing (``kernels.gather_distance_int8.quantize_symmetric``) with
+    ``scales`` its [n] float32 per-point scales, and ``norms`` the exact
+    float32 norms computed before quantization (required: the int8 copy
+    cannot give them back)."""
     check_metric(metric)
+    if scales is not None:
+        if x.dtype != torch.int8:
+            raise TypeError(
+                "scales given but points are not int8; pack them with "
+                "kernels.gather_distance_int8.quantize_symmetric")
+        if norms is None:
+            raise ValueError(
+                "int8 serving needs the exact float32 point norms computed "
+                "before quantization (metrics.point_norms on the float32 "
+                "points); they cannot be recovered from the int8 copy")
     if iters is None:
         iters = default_iters(beam)
     if norms is None:
         norms = point_norms(x, metric)
     ids, ds, hops, comps, converged = _beam_search_multi(
         graph, x, norms, queries, start, beam=beam, iters=int(iters),
-        metric=metric, expansions=int(expansions), early_exit=bool(early_exit))
+        metric=metric, expansions=int(expansions), early_exit=bool(early_exit),
+        scales=scales)
     if with_stats:
         return ids, ds, hops, comps, converged
     return ids, ds

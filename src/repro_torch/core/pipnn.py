@@ -224,20 +224,21 @@ def build(x, params: PiPNNParams | None = None, *, leaves: list[np.ndarray] | No
                       params=params, timings=timings, stats=stats)
 
 
-def serving_index(index: PiPNNIndex, x, *, device=None):
+def serving_index(index: PiPNNIndex, x, *, dtype=None, device=None):
     """The ``ServingIndex`` for ``(index, x)``, cached on the index: the
-    first call packs graph, points and norms onto the device, later calls
-    with the same ``x``, graph object and device reuse it."""
+    first call packs graph, points and norms (and the int8 scales with
+    ``dtype="int8"``) onto the device, later calls with the same ``x``,
+    graph object, dtype and device reuse it."""
     from repro_torch.core.serving import ServingIndex
 
     dev = resolve_device(device)
-    key = (index.start, index.params.metric, str(dev))
+    key = (index.start, index.params.metric, None if dtype is None else str(dtype), str(dev))
     cached = getattr(index, "_serving", None)
     if (cached is not None and getattr(index, "_serving_x", None) is x
             and getattr(index, "_serving_graph", None) is index.graph
             and getattr(index, "_serving_key", None) == key):
         return cached
-    sv = ServingIndex.from_index(index, x, device=dev)
+    sv = ServingIndex.from_index(index, x, dtype=dtype, device=dev)
     index._serving, index._serving_x = sv, x
     index._serving_graph, index._serving_key = index.graph, key
     return sv
@@ -245,11 +246,14 @@ def serving_index(index: PiPNNIndex, x, *, device=None):
 
 def search(index: PiPNNIndex, x, queries, *, k: int = 10, beam: int = 32,
            expansions: int | None = None, iters: int | None = None,
-           query_chunk: int | None = None, with_stats: bool = False, device=None):
+           query_chunk: int | None = None, dtype=None, with_stats: bool = False,
+           device=None):
     """Query the index; returns [Q, k] neighbour ids (int64 numpy, -1-padded
     when fewer than ``k`` are found), through the cached ``ServingIndex``
-    and the multi-expansion beam search (``expansions`` default 4)."""
-    sv = serving_index(index, x, device=device)
+    and the multi-expansion beam search (``expansions`` default 4).
+    ``dtype`` downcasts the serving copy of the points (``torch.bfloat16``)
+    or, with ``dtype="int8"``, serves the scalar-quantized packing."""
+    sv = serving_index(index, x, dtype=dtype, device=device)
     return sv.search(queries, k=k, beam=beam,
                      expansions=4 if expansions is None else expansions,
                      iters=iters, query_chunk=query_chunk, with_stats=with_stats)

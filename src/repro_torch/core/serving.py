@@ -1,11 +1,15 @@
-"""Device-resident query serving (counterpart of ``repro/core/serving.py``,
-float32 packing only).
+"""Device-resident query serving (counterpart of ``repro/core/serving.py``).
 
 ``ServingIndex`` packs what the query path touches onto the device once:
-the [n, R] int32 adjacency, the [n, d] float32 points, their metric norms
-(``metrics.point_norms``) and the entry point.  A ``search`` call then moves
-nothing but the queries in and the ids out, and runs the multi-expansion
-beam search (``beam_search.beam_search_batch``).  The reference's
+the [n, R] int32 adjacency, the [n, d] points, their metric norms
+(``metrics.point_norms``, always float32 and computed from the float32
+points) and the entry point.  The points are float32, a downcast copy
+(``dtype=torch.bfloat16``), or with ``dtype="int8"`` the scalar-quantized
+packing: int8 rows and [n] float32 per-point scales
+(``kernels.gather_distance_int8.quantize_symmetric``), a quarter of the
+float32 points' bytes, with the norm half of every distance kept exact.
+A ``search`` call then moves nothing but the queries in and the ids out,
+and runs the multi-expansion beam search (``beam_search.beam_search_batch``).  The reference's
 VMEM-vs-HBM kernel selection has no counterpart on the card: one gather
 kernel reads the points from device memory.
 """
@@ -21,6 +25,22 @@ from repro_torch.core import beam_search as _bs
 from repro_torch.core.metrics import point_norms
 from repro_torch.core.validation import validate_queries, validate_search_params
 from repro_torch.device import resolve_device
+from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
+
+
+def _is_int8(dtype) -> bool:
+    """True for the scalar-quantized packing request: the string ``"int8"``
+    or any spelling of the int8 dtype (``torch.int8``, ``np.int8``, ...)."""
+    if dtype is None:
+        return False
+    if isinstance(dtype, str):
+        return dtype == "int8"
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.int8
+    try:
+        return np.dtype(dtype) == np.int8
+    except TypeError:
+        return False
 
 
 def _to_device(a, dtype, device) -> torch.Tensor:
@@ -32,10 +52,11 @@ def _to_device(a, dtype, device) -> torch.Tensor:
 @dataclasses.dataclass
 class ServingIndex:
     graph: torch.Tensor    # [n, R] int32, -1 padded, on the device
-    points: torch.Tensor   # [n, d] float32 on the device
+    points: torch.Tensor   # [n, d] on the device (float32, downcast or int8)
     norms: torch.Tensor    # [n] float32 point norms (metrics.point_norms)
     start: int             # entry point (medoid)
     metric: str = "l2"
+    scales: torch.Tensor | None = None   # [n] float32 scales (int8 packing)
 
     @property
     def n(self) -> int:
@@ -46,25 +67,38 @@ class ServingIndex:
         return self.points.device
 
     def device_bytes(self) -> int:
-        """Device-resident footprint of the packing (graph + points + norms)."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.graph, self.points, self.norms))
+        """Device-resident footprint of the packing (graph + points + norms,
+        plus the per-point scales on the int8 packing)."""
+        parts = (self.graph, self.points, self.norms) + (
+            () if self.scales is None else (self.scales,))
+        return sum(t.numel() * t.element_size() for t in parts)
 
     @classmethod
-    def from_graph(cls, graph, x, start: int, *, metric: str = "l2", device=None):
+    def from_graph(cls, graph, x, start: int, *, metric: str = "l2", dtype=None,
+                   device=None):
         """Pack an adjacency matrix and its points (numpy arrays or tensors)
-        onto ``device`` (default: the card, raising without one)."""
+        onto ``device`` (default: the card, raising without one).
+
+        ``dtype`` (e.g. ``torch.bfloat16``) downcasts the points copy;
+        ``dtype="int8"`` (or ``torch.int8``, ``np.int8``) packs the
+        scalar-quantized copy.  Either way the norms are computed from the
+        float32 points first."""
         dev = resolve_device(device)
         points = _to_device(x, torch.float32, dev)
+        norms = point_norms(points, metric)
+        scales = None
+        if _is_int8(dtype):
+            points, scales = quantize_symmetric(points)
+        elif dtype is not None:
+            points = points.to(dtype)
         return cls(graph=_to_device(graph, torch.int32, dev), points=points,
-                   norms=point_norms(points, metric), start=int(start),
-                   metric=metric)
+                   norms=norms, start=int(start), metric=metric, scales=scales)
 
     @classmethod
-    def from_index(cls, index, x, *, device=None):
+    def from_index(cls, index, x, *, dtype=None, device=None):
         """Pack a ``PiPNNIndex`` over its dataset ``x``."""
         return cls.from_graph(index.graph, x, index.start,
-                              metric=index.params.metric, device=device)
+                              metric=index.params.metric, dtype=dtype, device=device)
 
     def search(self, queries, *, k: int = 10, beam: int = 32, expansions: int = 4,
                iters: int | None = None, early_exit: bool = True,
@@ -96,8 +130,8 @@ class ServingIndex:
             ids, _, hops, comps, conv = _bs.beam_search_batch(
                 self.graph, self.points, torch.from_numpy(qc).to(self.device),
                 start=self.start, beam=beam, iters=iters_cap, metric=self.metric,
-                expansions=expansions, norms=self.norms, early_exit=early_exit,
-                with_stats=True)
+                expansions=expansions, norms=self.norms, scales=self.scales,
+                early_exit=early_exit, with_stats=True)
             parts["ids"].append(_bs.pad_ids(ids[:take].cpu().numpy(), k))
             for key, val in zip(("hops", "dist_comps", "converged"), (hops, comps, conv)):
                 parts[key].append(val[:take].cpu().numpy())

@@ -8,16 +8,25 @@ sources are in ``csrc/`` and are built at first use (``_build``).
 """
 from __future__ import annotations
 
-from repro_torch.kernels import edge_hash, gather_distance, leaf_knn, segmented_merge
+from repro_torch.kernels import (distance, edge_hash, gather_distance, gather_distance_int8,
+                                 leaf_knn, segmented_merge, topk)
 
-_MODULES = {"leaf_knn": leaf_knn, "edge_hash": edge_hash,
-            "segmented_merge": segmented_merge, "gather_distance": gather_distance}
+# counter name -> (wrapper module, the attribute its wrapper counts in);
+# ``distance`` holds two kernels, so it has two counters
+_MODULES = {"leaf_knn": (leaf_knn, "launches"),
+            "edge_hash": (edge_hash, "launches"),
+            "segmented_merge": (segmented_merge, "launches"),
+            "gather_distance": (gather_distance, "launches"),
+            "gather_distance_int8": (gather_distance_int8, "launches"),
+            "pairwise_distance": (distance, "launches"),
+            "pairwise_distance_int8": (distance, "launches_int8"),
+            "rowwise_topk": (topk, "launches")}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        mod.launches = 0
+    for mod, attr in _MODULES.values():
+        setattr(mod, attr, 0)
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in _MODULES.items()}

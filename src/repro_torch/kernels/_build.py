@@ -7,7 +7,7 @@ included, so a build takes seconds.  The build is made at first use, never
 at import, into ``build/repro_torch_kernels/`` at the repository root
 (listed in ``.gitignore``), under a name that hashes the sources, so an
 edited source is rebuilt and an unchanged one is reused.  No fast-math:
-the leaf and gather kernels must round like the plain versions.
+the leaf, gather and distance kernels must round like the plain versions.
 
 Every C entry returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on anything but 0.
@@ -29,12 +29,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_int64
 # C entry points: name -> argument types (all return int, a cudaError_t)
 SIGNATURES = {
     "pipnn_leaf_topk": [P, P, I, I, I, I, I, I, P, P, P],
-    "pipnn_edge_hashes": [P, P, P, ctypes.c_int64, I, P, P],
-    "pipnn_merge_sorted_reservoirs": [P, P, P, P, P, P, ctypes.c_int64, I, P],
+    "pipnn_edge_hashes": [P, P, P, L, I, P, P],
+    "pipnn_merge_sorted_reservoirs": [P, P, P, P, P, P, L, I, P],
     "pipnn_gather_distance": [P, P, P, P, I, I, I, I, I, P, P],
+    "pipnn_gather_distance_bf16": [P, P, P, P, I, I, I, I, I, P, P],
+    "pipnn_gather_distance_int8": [P, P, P, P, P, P, I, I, I, I, I, P, P],
+    "pipnn_pairwise_distance": [P, P, I, I, I, I, I, P, P],
+    "pipnn_pairwise_distance_int8": [P, P, I, I, I, I, P, P],
+    "pipnn_rowwise_topk": [P, L, I, I, P, P, P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -15,7 +15,15 @@
 // Padding ids (-1) give +inf.  Four neighbours are in flight per warp to
 // hide the latency of the random row reads.
 //
-// Bound: bytes, Q*C*d*4 of randomly gathered rows (plus ids and output).
+// The rows are float32, or bfloat16 for a downcast serving copy (the
+// reference's kernel upcasts the gathered rows the same way): one template,
+// with rows read four elements at a time (16 or 8 bytes) and widened to
+// float32 exactly, the query and the norms staying float32.
+//
+// Bound: bytes, Q*C*d*sizeof(row element) of randomly gathered rows (plus
+// ids and output).
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
@@ -29,8 +37,25 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// elements 4i..4i+3 of a row, as float32
+__device__ __forceinline__ float4 load4(const float* row, int i) {
+  return reinterpret_cast<const float4*>(row)[i];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* row, int i) {
+  // two bf16 per 32-bit word, the lower address in the low half; a bf16
+  // is the upper half of the float32 with the same value
+  const uint2 u = reinterpret_cast<const uint2*>(row)[i];
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
-gather_distance_kernel(const float* __restrict__ pts, const float* __restrict__ norms,
+gather_distance_kernel(const T* __restrict__ pts, const float* __restrict__ norms,
                        const float* __restrict__ queries, const int* __restrict__ ids,
                        int d, int C, int metric, float* __restrict__ out) {
   extern __shared__ __align__(16) float q_s[];
@@ -69,7 +94,7 @@ gather_distance_kernel(const float* __restrict__ pts, const float* __restrict__ 
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           if (id[u] < 0) continue;
-          const float4 p = reinterpret_cast<const float4*>(pts + (size_t)id[u] * d)[i];
+          const float4 p = load4(pts + (size_t)id[u] * d, i);
           ip[u] = fmaf(qv.x, p.x, ip[u]);
           ip[u] = fmaf(qv.y, p.y, ip[u]);
           ip[u] = fmaf(qv.z, p.z, ip[u]);
@@ -80,7 +105,7 @@ gather_distance_kernel(const float* __restrict__ pts, const float* __restrict__ 
       for (int i = lane; i < d; i += 32) {
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u)
-          if (id[u] >= 0) ip[u] = fmaf(q_s[i], pts[(size_t)id[u] * d + i], ip[u]);
+          if (id[u] >= 0) ip[u] = fmaf(q_s[i], to_f32(pts[(size_t)id[u] * d + i]), ip[u]);
       }
     }
 #pragma unroll
@@ -111,6 +136,18 @@ gather_distance_kernel(const float* __restrict__ pts, const float* __restrict__ 
   }
 }
 
+template <typename T>
+cudaError_t launch(const void* pts, const void* norms, const void* queries, const void* ids,
+                   int d, int Q, int C, int metric, void* out, void* stream) {
+  const size_t smem = (size_t)d * sizeof(float);
+  if (Q > 0 && C > 0)
+    gather_distance_kernel<T><<<Q, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(pts), static_cast<const float*>(norms),
+        static_cast<const float*>(queries), static_cast<const int*>(ids), d, C, metric,
+        static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // points [n, d] f32, norms [n] f32, queries [Q, d] f32, ids [Q, C] int32
@@ -119,11 +156,13 @@ PIPNN_EXPORT int pipnn_gather_distance(const void* pts, const void* norms, const
                                        const void* ids, int n, int d, int Q, int C, int metric,
                                        void* out, void* stream) {
   (void)n;
-  const size_t smem = (size_t)d * sizeof(float);
-  if (Q > 0 && C > 0)
-    gather_distance_kernel<<<Q, WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(pts), static_cast<const float*>(norms),
-        static_cast<const float*>(queries), static_cast<const int*>(ids), d, C, metric,
-        static_cast<float*>(out));
-  return cudaGetLastError();
+  return launch<float>(pts, norms, queries, ids, d, Q, C, metric, out, stream);
+}
+
+// the same with points [n, d] bf16
+PIPNN_EXPORT int pipnn_gather_distance_bf16(const void* pts, const void* norms,
+                                            const void* queries, const void* ids, int n, int d,
+                                            int Q, int C, int metric, void* out, void* stream) {
+  (void)n;
+  return launch<__nv_bfloat16>(pts, norms, queries, ids, d, Q, C, metric, out, stream);
 }

@@ -8,10 +8,13 @@ budget have no counterpart: one CUDA kernel (``csrc/gather_distance.cu``)
 serves both.  One block per query keeps the query in shared memory; each
 warp reads a neighbour row with coalesced 16-byte loads, reduces the dot
 product with shuffles and applies the norm expansion with the precomputed
-point norms (``core.metrics.point_norms``).  Padding ids give +inf.
+point norms (``core.metrics.point_norms``).  Padding ids give +inf.  The
+points are float32, or bfloat16 for a downcast serving copy: the kernel is
+a template over the row type and widens each gathered element to float32,
+as the reference's kernel upcasts its gathered rows.
 
-Bound on the card: bytes, a randomly gathered d*4-byte row for each
-distinct valid id (padding reads nothing).  Four neighbour rows are in
+Bound on the card: bytes, a randomly gathered row (d*4 bytes, or d*2 in
+bfloat16) for each distinct valid id (padding reads nothing).  Four neighbour rows are in
 flight per warp to cover the latency of the random reads.  The plain version is the oracle
 ``repro/kernels/ref.py::gather_distance_ref``.
 """
@@ -23,6 +26,8 @@ from repro_torch.core.metrics import check_metric, clamp_zero
 from repro_torch.kernels import _build
 
 METRIC_CODES = {"l2": 0, "mips": 1, "cosine": 2}
+# C entry point by row type
+_ENTRY = {torch.float32: "pipnn_gather_distance", torch.bfloat16: "pipnn_gather_distance_bf16"}
 
 launches = 0   # kernel launches since the last reset
 
@@ -47,16 +52,18 @@ def gather_distance_plain(points, norms, queries, nbr_ids, metric: str = "l2"):
 
 def gather_distance(points, norms, queries, nbr_ids, metric: str = "l2"):
     """Distance block [Q, C] float32 between ``queries`` [Q, d] and the rows
-    ``points[nbr_ids]`` ([n, d] float32, ids [Q, C] int32, -1 = padding ->
-    +inf), with ``norms`` [n] from ``point_norms``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel."""
+    ``points[nbr_ids]`` ([n, d] float32 or bfloat16, ids [Q, C] int32, -1 =
+    padding -> +inf), with ``norms`` [n] float32 from ``point_norms`` of the
+    float32 points.  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
     global launches
     check_metric(metric)
     if points.device.type == "cpu":
         return gather_distance_plain(points, norms, queries, nbr_ids, metric)
-    if (points.dtype != torch.float32 or norms.dtype != torch.float32
+    if (points.dtype not in _ENTRY or norms.dtype != torch.float32
             or queries.dtype != torch.float32 or nbr_ids.dtype != torch.int32):
-        raise TypeError("gather_distance takes float32 points/norms/queries, int32 ids")
+        raise TypeError("gather_distance takes float32 or bfloat16 points, float32 "
+                        "norms/queries, int32 ids")
     nq, c = nbr_ids.shape
     n, d = points.shape
     if queries.shape != (nq, d) or norms.shape != (n,):
@@ -65,7 +72,7 @@ def gather_distance(points, norms, queries, nbr_ids, metric: str = "l2"):
     if points.data_ptr() % 16:
         raise ValueError("gather_distance: points must be 16-byte aligned (16-byte row loads)")
     out = torch.empty((nq, c), dtype=torch.float32, device=points.device)
-    rc = _build.library().pipnn_gather_distance(
+    rc = getattr(_build.library(), _ENTRY[points.dtype])(
         points.data_ptr(), norms.data_ptr(), queries.data_ptr(), nbr_ids.data_ptr(),
         n, d, nq, c, METRIC_CODES[metric], out.data_ptr(), _build.stream_ptr(points))
     _build.check(rc, "gather_distance")

@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the launch counters, and the main path through every kernel.
+version, the launch counters, and each path through its own kernels.
 
 Every test here needs an NVIDIA card (a CUDA kernel has no CPU mode) and
 skips without one.  This file imports neither JAX nor ``repro``, so it runs
@@ -13,7 +13,8 @@ import torch
 
 from repro_torch.core.hashprune import hashprune_flat
 from repro_torch.core.metrics import point_norms
-from repro_torch.kernels import edge_hash, gather_distance, leaf_knn, segmented_merge
+from repro_torch.kernels import (distance, edge_hash, gather_distance, gather_distance_int8,
+                                 leaf_knn, segmented_merge, topk)
 
 pytestmark = pytest.mark.cuda
 
@@ -91,6 +92,112 @@ def test_gather_distance_kernel_matches_plain(cuda, metric, d):
                        gather_distance.gather_distance_plain(x, nrm, q, ids, metric))
 
 
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+@pytest.mark.parametrize("d", (128, 37))
+def test_gather_distance_bf16_kernel_matches_plain(cuda, metric, d):
+    """bfloat16 rows: exact on integers below 256 (exact in bfloat16) for l2
+    and mips; otherwise within 1e-5 |d| + 16 eps (|q|^2 + |p|^2) (l2, mips)
+    or 1e-5 |d| + 1e-5 (cosine)."""
+    rng = np.random.default_rng(12)
+    for integer in (True, False):
+        x32 = (_int_points(rng, 3000, d) if integer
+               else rng.standard_normal((3000, d)).astype(np.float32))
+        x32 = torch.from_numpy(x32).to(cuda)
+        q = x32[:200] + 1
+        ids = torch.from_numpy(rng.integers(-1, 3000, (200, 130)).astype(np.int32)).to(cuda)
+        nrm = point_norms(x32, metric)
+        xb = x32.to(torch.bfloat16)
+        got = gather_distance.gather_distance(xb, nrm, q, ids, metric)
+        want = gather_distance.gather_distance_plain(xb, nrm, q, ids, metric)
+        if integer and metric != "cosine":
+            assert torch.equal(got, want)
+        fin = torch.isfinite(want)
+        assert torch.equal(torch.isfinite(got), fin)
+        scale = (q * q).sum(1)[:, None] + (x32 * x32).sum(1)[ids.clamp_min(0).long()]
+        slack = 1e-5 if metric == "cosine" else 16 * 2.0 ** -23 * scale[fin]
+        assert bool(((got[fin] - want[fin]).abs() <= 1e-5 * want[fin].abs() + slack).all())
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+@pytest.mark.parametrize("d", (128, 37))
+def test_gather_distance_int8_kernel_bit_exact(cuda, metric, d):
+    """Bit-exact on Gaussian and integer data alike (no FMA contraction)."""
+    rng = np.random.default_rng(13)
+    for x32 in (torch.from_numpy(_int_points(rng, 4000, d)),
+                torch.from_numpy(rng.standard_normal((4000, d)).astype(np.float32))):
+        x32 = x32.to(cuda)
+        q = x32[:300] * 0.5 + 1
+        p8, sc = gather_distance_int8.quantize_symmetric(x32)
+        ids = torch.from_numpy(rng.integers(-1, 4000, (300, 257)).astype(np.int32)).to(cuda)
+        args = (p8, sc, point_norms(x32, metric), q, point_norms(q, metric), ids, metric)
+        assert torch.equal(gather_distance_int8.gather_distance_int8(*args),
+                           gather_distance_int8.gather_distance_int8_plain(*args))
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+@pytest.mark.parametrize("b,m,n,d", [(1, 3000, 1000, 128), (3, 70, 130, 37)])
+def test_pairwise_distance_kernel_matches_plain(cuda, metric, b, m, n, d):
+    """Exact on integer data for l2 and mips (cosine within 4 eps);
+    Gaussian within 1e-5 |d| + 1e-4 (|a|^2 + |b|^2)."""
+    rng = np.random.default_rng(14)
+    a = torch.from_numpy(_int_points(rng, b * m, d).reshape(b, m, d)).to(cuda)
+    bb = torch.from_numpy(_int_points(rng, b * n, d).reshape(b, n, d)).to(cuda)
+    got = distance.pairwise_distance(a, bb, metric)
+    want = distance.pairwise_distance_plain(a, bb, metric)
+    if metric == "cosine":
+        assert float((got - want).abs().max()) <= 4 * 2.0 ** -23
+    else:
+        assert torch.equal(got, want)
+    a, bb = a.normal_(), bb.normal_()
+    got = distance.pairwise_distance(a, bb, metric)
+    want = distance.pairwise_distance_plain(a, bb, metric)
+    scale = (a * a).sum(-1)[:, :, None] + (bb * bb).sum(-1)[:, None, :]
+    atol = 1e-5 if metric == "cosine" else 1e-4 * scale
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + atol).all())
+
+
+@pytest.mark.parametrize("b,m,n,d", [(1, 2000, 1000, 128), (2, 70, 130, 37)])
+def test_pairwise_distance_int8_kernel_exact(cuda, b, m, n, d):
+    g = torch.Generator(device=cuda).manual_seed(15)
+    a = torch.randint(-127, 128, (b, m, d), device=cuda, generator=g, dtype=torch.int8)
+    bb = torch.randint(-127, 128, (b, n, d), device=cuda, generator=g, dtype=torch.int8)
+    assert torch.equal(distance.pairwise_distance_int8(a, bb),
+                       distance.pairwise_distance_int8_plain(a, bb))
+    # an offset view: rows no longer start on 4-byte boundaries
+    flat = torch.randint(-127, 128, (1 + m * d,), device=cuda, generator=g, dtype=torch.int8)
+    av = flat[1:].view(1, m, d)
+    assert torch.equal(distance.pairwise_distance_int8(av, bb[:1]),
+                       distance.pairwise_distance_int8_plain(av, bb[:1]))
+
+
+@pytest.mark.parametrize("k", (1, 2, 10, 16))
+@pytest.mark.parametrize("b,m,n", [(1, 5000, 1000), (2, 130, 11), (1, 37, 4097)])
+def test_rowwise_topk_kernel_exact(cuda, k, b, m, n):
+    """Ties, +inf masks, -1 ids, fewer finite entries than k.  Exact."""
+    rng = np.random.default_rng(16)
+    d = rng.integers(0, 6, (b, m, n)).astype(np.float32)
+    d[rng.random((b, m, n)) < 0.3] = np.inf
+    d[0, 0] = np.inf
+    d[0, 1, 2:] = np.inf
+    d = torch.from_numpy(d).to(cuda)
+    got = topk.rowwise_topk(d, k)
+    want = topk.rowwise_topk_plain(d, k)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert bool((got[0][0, 0] == -1).all())
+
+
+def test_leader_assign_kernel_route_on_the_card(cuda):
+    from repro_torch.core.leader_assign import leader_assign
+
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(_int_points(rng, 20_000, 128)).to(cuda)
+    lead = x[torch.from_numpy(rng.choice(20_000, 200, replace=False)).to(cuda)]
+    topk.launches = distance.launches = 0
+    got = leader_assign(x, lead, 10, use_kernels=True)
+    assert topk.launches == 1 and distance.launches == 1
+    assert torch.equal(got, leader_assign(x, lead, 10))
+
+
 def test_kernel_launch_counters_count_launches(cuda):
     from repro_torch import kernels
 
@@ -99,11 +206,17 @@ def test_kernel_launch_counters_count_launches(cuda):
     ids = torch.arange(256, device=cuda, dtype=torch.int32).reshape(2, 128)
     leaf_knn.leaf_topk(x, ids, 2)
     leaf_knn.leaf_topk_plain(x, ids, 2)
+    distance.pairwise_distance_int8(x[None].to(torch.int8), x[None].to(torch.int8))
     assert kernels.launch_counts() == {"leaf_knn": 1, "edge_hash": 0,
-                                       "segmented_merge": 0, "gather_distance": 0}
+                                       "segmented_merge": 0, "gather_distance": 0,
+                                       "gather_distance_int8": 0, "pairwise_distance": 0,
+                                       "pairwise_distance_int8": 1, "rowwise_topk": 0}
 
 
 def test_main_path_launches_every_kernel(cuda):
+    """Each path through its own kernels: the build through leaf, hash and
+    merge; float32 and bfloat16 search through the gather kernel; int8
+    search through the int8 gather kernel and no other."""
     import repro_torch
     from repro_torch import kernels
     from repro_torch.data import VectorPipelineConfig, make_vectors, sift_like
@@ -111,7 +224,13 @@ def test_main_path_launches_every_kernel(cuda):
     x = sift_like(make_vectors(VectorPipelineConfig(n=20_000, dim=128, n_clusters=64)))
     kernels.reset_launch_counts()
     index = repro_torch.build(x)
-    repro_torch.search(index, x, x[:100], k=10, beam=32)
-    assert all(v > 0 for v in kernels.launch_counts().values()), kernels.launch_counts()
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("leaf_knn", "edge_hash", "segmented_merge")), counts
+    for dtype, used in ((None, "gather_distance"), (torch.bfloat16, "gather_distance"),
+                        ("int8", "gather_distance_int8")):
+        kernels.reset_launch_counts()
+        repro_torch.search(index, x, x[:100], k=10, beam=32, dtype=dtype)
+        counts = kernels.launch_counts()
+        assert counts[used] > 0 and sum(counts.values()) == counts[used], (dtype, counts)
     cpu = repro_torch.build(x, device="cpu")
     assert torch.equal(index.graph.cpu(), cpu.graph) and index.start == cpu.start
