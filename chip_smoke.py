@@ -18,7 +18,10 @@ Phases (any failure exits non-zero before the last line is printed):
    into its stream chunks): leaf top-k bit-exact on the integer data and
    within the stated tolerance on Gaussian data, edge hashes and merge
    bit-exact; kernel and plain times, and the least time the card could
-   take for the same work.
+   take for the same work.  The leaf top-k forms its products on the tensor
+   cores with three TF32 products per float32 product (3xTF32), so its
+   bound is those at the TF32 peak; the f32 CUDA-core bound of the same
+   products stands beside it.
 2. small parity: n = 65,536 built on the card and on the CPU must give the
    identical graph and entry point, and search must give equal recall.
    Why this can be exact: with integer data below 2^24 every norm, dot
@@ -42,7 +45,9 @@ Phases (any failure exits non-zero before the last line is printed):
    have run on it.
 4. the search's gather kernels against their plain versions, as in phase
    1, on blocks of the built graph's rows for the 10,000 queries: float32,
-   bfloat16 and int8 (bit-exact on integer and Gaussian data).
+   bfloat16 and int8 (bit-exact on integer and Gaussian data).  Beside the
+   bound (each distinct row read once) stands the time to read every valid
+   slot's row with no reuse across queries.
 5. Stage 1's root subproblem of the full-size build (all n points against
    its 1,000 leaders, f = 10) through ``leader_assign(use_kernels=True)``:
    the distance and top-k kernels against their plain versions and the
@@ -62,9 +67,10 @@ import subprocess
 import sys
 import time
 
-# f32 CUDA-core peak, int8 peak and memory rate of one H100 SXM (NVIDIA's
-# data sheet)
+# f32 CUDA-core peak, TF32 tensor-core peak, int8 peak and memory rate of
+# one H100 SXM (NVIDIA's data sheet, dense)
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 EPS32 = 2.0 ** -23           # float32 machine epsilon
@@ -175,19 +181,25 @@ def phase_kernels(x, xg, seed: int) -> dict:
     err = float(err.max())
     idx_agree = float((gi == hi).float().mean())
     del gi, gd, hi, hd, fin
-    # work this chunk needs: all pairs within each leaf's valid points; each
-    # distinct point row read once, the ids read and the outputs written once
-    flops = float(2.0 * d * (sizes ** 2).sum())
+    # work this chunk needs: one d-long product (2d FLOPs) for each unordered
+    # pair of distinct valid points of a leaf, as the distances are
+    # symmetric; each distinct point row read once, the ids read and the
+    # outputs written once.  The kernel keeps the float32 result with three
+    # TF32 products per f32 product (3xTF32), so its bound is those at the
+    # TF32 peak; the f32 CUDA-core bound of the same products is reported
+    # beside it.
+    flops = float(d * (sizes * (sizes - 1)).sum())
     rows = torch.unique(ids[ids >= 0]).numel()
     nbytes = float(ids.numel() * 4 + rows * d * 4 + ki.numel() * 8)
+    tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     out["leaf_topk"] = dict(
         max_abs_err=err, gaussian_idx_agreement=idx_agree, tolerance="exact on integer "
         "data; Gaussian |err| <= 1e-5 |d| + 32 eps max|x|^2",
         ms=cuda_ms(lambda: leaf_knn.leaf_topk(x, ids, k), 10),
         plain_ms=cuda_ms(lambda: leaf_knn.leaf_topk_plain(x, ids, k, block=16), 2),
-        flops=flops, bytes=nbytes, bound_by="operations" if flops / PEAK_F32_FLOPS
-        > nbytes / PEAK_BYTES else "bytes",
-        bound_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
+        flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
+        bound_ms=tc["bound_ms"],
+        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
     log("phase1 leaf_topk", json.dumps(out["leaf_topk"]))
 
     # edge hashes: the chunk's bidirected edges (2 * chunk * C * k entries)
@@ -311,7 +323,11 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
         valid_share=valid / gids.numel(), distinct_rows=rows,
         ms=cuda_ms(lambda: gather_distance.gather_distance(x, nrm, q, gids), 20),
         plain_ms=cuda_ms(lambda: gather_distance.gather_distance_plain(x, nrm, q, gids), 3),
-        library=None, library_ms=None, **bound(0.0, float(rows * (d * 4 + 4) + common)))
+        library=None, library_ms=None, **bound(0.0, float(rows * (d * 4 + 4) + common)),
+        # every valid slot's row read from device memory, with no reuse
+        # across queries: the most the kernel can gain without an order of
+        # queries chosen by the caller
+        no_reuse_ms=1e3 * valid * d * 4 / PEAK_BYTES)
     x16 = sv16.points
     b16 = bound(0.0, float(rows * (d * 2 + 4) + common))
     out.update(
@@ -319,7 +335,8 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
         bf16_ms=cuda_ms(lambda: gather_distance.gather_distance(x16, nrm, q, gids), 20),
         bf16_plain_ms=cuda_ms(
             lambda: gather_distance.gather_distance_plain(x16, nrm, q, gids), 3),
-        bf16_bound_ms=b16["bound_ms"], bf16_bytes=b16["bytes"])
+        bf16_bound_ms=b16["bound_ms"], bf16_bytes=b16["bytes"],
+        bf16_no_reuse_ms=1e3 * valid * d * 2 / PEAK_BYTES)
     log("phase4 gather_distance", json.dumps(out))
     q_norms = point_norms(q)
     args8 = (sv8.points, sv8.scales, sv8.norms, q, q_norms, gids)
@@ -671,8 +688,11 @@ def main() -> int:
                    bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                    library_ms=s.get("library_ms"), library=s.get("library"),
                    tolerance=s["tolerance"])
+        if name == "leaf_topk":
+            row.update(bound_f32_cuda_core_ms=s["bound_f32_cuda_core_ms"])
         if name == "gather_distance":
-            row.update(bf16_launches=full["launches"]["bfloat16"]["gather_distance"],
+            row.update(no_reuse_ms=s["no_reuse_ms"],
+                       bf16_launches=full["launches"]["bfloat16"]["gather_distance"],
                        **{k: v for k, v in s.items() if k.startswith("bf16_")})
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)

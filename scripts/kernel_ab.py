@@ -1,0 +1,176 @@
+"""Time a kernel of this checkout against other versions of its source,
+alternately, in one process on one card.
+
+    git archive <commit> src/repro_torch/kernels/csrc | tar -x -C build/ab
+    python scripts/kernel_ab.py gather --baseline build/ab/src/repro_torch/kernels/csrc
+
+Each ``--baseline`` directory holds another version's kernel source (with
+the ``common.cuh`` beside it); it is compiled with the checkout's nvcc
+flags into a library of its own.  The inputs are those of
+``chip_smoke.py`` on the SIFT-like data of n points: for ``leaf``, phase
+1's (the first stream chunk of the build's own partition, k = 2); for
+``gather``, phase 4's (the full build's graph rows of each query's 4 true
+nearest neighbours, C = 256, float32 and bfloat16 rows).  Every version
+must give the checkout's output.  Each round times every version once,
+the mean of ``--reps`` launches, in an order that alternates between
+rounds.  Prints the card's name and power limit, then one JSON line with
+every round's times and their medians.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+SOURCES = {"leaf": ("leaf_knn.cu", ("pipnn_leaf_topk",)),
+           "gather": ("gather_distance.cu",
+                      ("pipnn_gather_distance", "pipnn_gather_distance_bf16"))}
+
+
+def build_version(csrc: pathlib.Path, kernel: str, tag: str) -> ctypes.CDLL:
+    """The library of ``csrc``'s source of ``kernel``."""
+    from repro_torch.kernels import _build
+
+    src, entries = SOURCES[kernel]
+    out = _build.BUILD_DIR.parent / "kernel_ab" / tag
+    out.mkdir(parents=True, exist_ok=True)
+    obj, lib = out / "kernel.o", out / "libkernel.so"
+    for cmd in ([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-c", str(csrc / src),
+                 "-o", str(obj)],
+                [_build._nvcc(), "-shared", "-o", str(lib), str(obj)]):
+        subprocess.run(cmd, check=True, capture_output=True, text=True)
+    dll = ctypes.CDLL(str(lib))
+    for name in entries:
+        fn = getattr(dll, name)
+        fn.argtypes = _build.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return dll
+
+
+def leaf_cases(x_np, seed: int, dev):
+    """Phase 1's leaf top-k call: [(tag, run(lib), its output tensors)]."""
+    import torch
+
+    from repro_torch.core import pipnn
+    from repro_torch.core.rbc import partition_padded
+    from repro_torch.kernels import _build, leaf_knn
+
+    x = torch.from_numpy(x_np).to(dev)
+    n = x.shape[0]
+    params = pipnn.PiPNNParams(seed=seed)
+    padded = partition_padded(x, dataclasses.replace(params.rbc, seed=seed))
+    chunk = pipnn._stream_chunk_leaves(params.leaf, n, params.l_max, *padded.shape)
+    ids = torch.from_numpy(padded[:chunk]).to(dev)
+    nb, c = ids.shape
+    k = params.leaf.k
+    oi = torch.empty((nb, c, k), dtype=torch.int32, device=dev)
+    od = torch.empty((nb, c, k), dtype=torch.float32, device=dev)
+
+    def run(lib):
+        _build.check(lib.pipnn_leaf_topk(
+            x.data_ptr(), ids.data_ptr(), n, x.shape[1], nb, c, k,
+            leaf_knn.METRIC_CODES["l2"], oi.data_ptr(), od.data_ptr(), _build.stream_ptr(x)),
+            "pipnn_leaf_topk")
+
+    return dict(leaves=nb, slots=c, k=k), [("leaf_topk", run, (oi, od))]
+
+
+def gather_cases(x_np, q_np, seed: int, dev):
+    """Phase 4's gather calls, float32 and bfloat16 rows."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.beam_search import brute_force_knn
+    from repro_torch.core.pipnn import serving_index
+    from repro_torch.kernels import _build, gather_distance
+
+    index = repro_torch.build(x_np, repro_torch.PiPNNParams(seed=seed), device=dev)
+    q = torch.from_numpy(q_np).to(dev)
+    truth = brute_force_knn(torch.from_numpy(x_np).to(dev), q, 10, chunk=256)
+    sv = serving_index(index, x_np, device=dev)
+    nq = q.shape[0]
+    gids = sv.graph[torch.from_numpy(truth[:, :4]).to(dev).long()].reshape(nq, -1).contiguous()
+    c = gids.shape[1]
+    n, d = sv.points.shape
+    out = torch.empty((nq, c), device=dev)
+    cases = []
+    for tag, pts, entry in (("float32", sv.points, "pipnn_gather_distance"),
+                            ("bfloat16", sv.points.to(torch.bfloat16),
+                             "pipnn_gather_distance_bf16")):
+        def run(lib, pts=pts, entry=entry):
+            _build.check(getattr(lib, entry)(
+                pts.data_ptr(), sv.norms.data_ptr(), q.data_ptr(), gids.data_ptr(), n, d, nq,
+                c, gather_distance.METRIC_CODES["l2"], out.data_ptr(), _build.stream_ptr(pts)),
+                entry)
+
+        cases.append((tag, run, (out,)))
+    info = dict(queries=nq, slots=c, valid=int((gids >= 0).sum()),
+                distinct_rows=torch.unique(gids[gids >= 0]).numel())
+    return info, cases
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("kernel", choices=sorted(SOURCES))
+    ap.add_argument("--baseline", type=pathlib.Path, action="append", required=True,
+                    help="a directory holding another version's source and common.cuh")
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--n", type=int, default=1_000_000)
+    ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from chip_smoke import cuda_ms, smi
+    from repro_torch.data import VectorPipelineConfig, make_queries, make_vectors, sift_like
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+
+    dev = resolve_device(None)
+    versions = {"checkout": _build.library()}
+    for i, path in enumerate(args.baseline):
+        versions[str(path)] = build_version(path.resolve(), args.kernel, f"v{i}")
+    cfg = VectorPipelineConfig(n=args.n, dim=128, n_clusters=1024, seed=args.seed)
+    x_np = sift_like(make_vectors(cfg))
+    if args.kernel == "leaf":
+        info, cases = leaf_cases(x_np, args.seed, dev)
+    else:
+        info, cases = gather_cases(x_np, sift_like(make_queries(cfg, args.queries)),
+                                   args.seed, dev)
+    result = dict(kernel=args.kernel, n=args.n, reps=args.reps, **info)
+    names = list(versions)
+    for tag, run, outs in cases:
+        run(versions["checkout"])
+        want = [t.clone() for t in outs]
+        for name in names[1:]:
+            run(versions[name])
+            if not all(torch.equal(a, b) for a, b in zip(outs, want)):
+                print(f"kernel_ab: {tag} of {name} differs from the checkout's", file=sys.stderr)
+                return 1
+        times = {name: [] for name in names}
+        for r in range(args.rounds):
+            for name in (names if r % 2 == 0 else names[::-1]):
+                times[name].append(cuda_ms(lambda: run(versions[name]), args.reps))
+        result[tag] = {name: dict(ms=t, median_ms=statistics.median(t))
+                       for name, t in times.items()}
+    print(smi())
+    print(json.dumps(result))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,17 +5,21 @@ gather_distance`` (points resident in VMEM, ``pallas_call`` at ``:179``)
 and ``::gather_distance_hbm`` (points streamed from HBM, ``:407``).  The
 card has one memory to read the rows from, so the VMEM-vs-HBM split and its
 budget have no counterpart: one CUDA kernel (``csrc/gather_distance.cu``)
-serves both.  One block per query keeps the query in shared memory; each
-warp reads a neighbour row with coalesced 16-byte loads, reduces the dot
-product with shuffles and applies the norm expansion with the precomputed
-point norms (``core.metrics.point_norms``).  Padding ids give +inf.  The
-points are float32, or bfloat16 for a downcast serving copy: the kernel is
-a template over the row type and widens each gathered element to float32,
-as the reference's kernel upcasts its gathered rows.
+serves both.  The points are float32, or bfloat16 for a downcast serving
+copy: the kernel is a template over the row type and widens each gathered
+element to float32 exactly, as the reference's kernel upcasts its gathered
+rows, so the result is the float32 one up to summation order (equal bits
+on integer data).
 
 Bound on the card: bytes, a randomly gathered row (d*4 bytes, or d*2 in
-bfloat16) for each distinct valid id (padding reads nothing).  Four neighbour rows are in
-flight per warp to cover the latency of the random reads.  The plain version is the oracle
+bfloat16) for each distinct valid id (padding reads nothing).  One warp
+takes 32 id slots of a query: one coalesced id load, valid ids compacted
+with a ballot (padding is written +inf and loads nothing), every row read
+with 16-byte lanes (a float32 row of 128 is one warp load, a bfloat16 row
+half of one), 8 loads in flight per lane, the dot products reduced within
+each row's lane group and the 32 results stored in one coalesced write.
+The norm expansion uses the precomputed point norms
+(``core.metrics.point_norms``).  The plain version is the oracle
 ``repro/kernels/ref.py::gather_distance_ref``.
 """
 from __future__ import annotations
@@ -69,8 +73,6 @@ def gather_distance(points, norms, queries, nbr_ids, metric: str = "l2"):
     if queries.shape != (nq, d) or norms.shape != (n,):
         raise ValueError("gather_distance: shapes of queries/norms do not match")
     _build.require_cuda("gather_distance", points, norms, queries, nbr_ids)
-    if points.data_ptr() % 16:
-        raise ValueError("gather_distance: points must be 16-byte aligned (16-byte row loads)")
     out = torch.empty((nq, c), dtype=torch.float32, device=points.device)
     rc = getattr(_build.library(), _ENTRY[points.dtype])(
         points.data_ptr(), norms.data_ptr(), queries.data_ptr(), nbr_ids.data_ptr(),

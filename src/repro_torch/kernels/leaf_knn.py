@@ -7,11 +7,21 @@ contract of ``repro/core/leaf.py::leaf_knn_jax``.  The CUDA kernel
 fusing the reference step's ``xj[ids]`` gather: at n = 1M a stream chunk's
 gathered [chunk, c_max, d] block would be about 8 GB.
 
-Bound on the card: operations, 2*C^2*d f32 FLOPs per leaf of C valid
-points at the CUDA-core rate (no TF32, so the result is the float32 one).
-The kernel never writes the [C, C] matrix; each 64x64 tile lives in
-registers and is folded into per-row running top-k lists, and tiles that
-hold no valid column are skipped.
+Bound on the card: operations, C*(C-1)*d FLOPs per leaf of C valid points
+(one product per unordered pair; the kernel forms both orders).
+The products run on the tensor cores in TF32, three per float32 product
+(3xTF32): each operand is split into ``hi = tf32(x)`` (round to nearest,
+ties away) and ``lo = x - hi``, of which the MMA reads the top 19 bits, and
+``lo*hi + hi*lo + hi*hi`` is summed in float32, which keeps the float32
+result (exact on integer data below 2048, where ``lo = 0``; within
+``1e-5 |d| + 32 eps max|x|^2`` of the plain version otherwise).  So the
+bound is three TF32 products at the TF32 peak.  The row tile stays in
+shared memory for the whole column walk (in depth chunks, reloaded for each
+column tile, when d is too deep to fit: past 736 at c_max = 1024), column
+tiles stream in through a ``cp.async`` ring, norms are summed once per row,
+and only the tiles that hold valid points are computed.  The [C, C] matrix
+is never written; each 64x64 tile is folded into per-row running top-k
+lists.
 """
 from __future__ import annotations
 

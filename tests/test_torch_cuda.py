@@ -51,6 +51,73 @@ def test_leaf_topk_kernel_matches_plain(cuda, k, d):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+# leaf sizes at every edge of the kernel's tiles (16-row warps, 8-column
+# MMA tiles, 64-row and 64-column tiles, 32-deep stages), up to c_max
+LEAF_SIZES = (1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1024)
+
+
+def _edge_leaves(rng, n, c=1024):
+    """One leaf of each of LEAF_SIZES (a prefix of valid ids), one all
+    padding, and one whose valid ids are scattered among -1s."""
+    ids = np.full((len(LEAF_SIZES) + 2, c), -1, np.int32)
+    for i, s in enumerate(LEAF_SIZES):
+        ids[i, :s] = rng.choice(n, s, replace=False)
+    pos = np.sort(rng.choice(c, 300, replace=False))
+    ids[-1, pos] = rng.choice(n, 300, replace=False)
+    return ids
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+@pytest.mark.parametrize("k", (1, 2, 8))
+@pytest.mark.parametrize("d", (128, 40, 100, 37))
+def test_leaf_topk_kernel_tile_edges(cuda, d, k, metric):
+    """Exact against the plain version on integer data at every tile edge;
+    d = 37 takes the 4-byte copies (rows not 16-byte aligned)."""
+    rng = np.random.default_rng(18)
+    x = torch.from_numpy(_int_points(rng, 3000, d)).to(cuda)
+    x[200:210] = x[199]                     # duplicate points: tied distances
+    ids = torch.from_numpy(_edge_leaves(rng, 3000)).to(cuda)
+    ids[10, 100:111] = torch.arange(199, 210, device=cuda, dtype=torch.int32)
+    got = leaf_knn.leaf_topk(x, ids, k, metric)
+    want = leaf_knn.leaf_topk_plain(x, ids, k, metric)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert bool((got[0][len(LEAF_SIZES)] == -1).all())
+
+
+def test_leaf_topk_kernel_gaussian_within_tolerance(cuda):
+    """Gaussian-mixture data, held to phase 1's tolerance:
+    |err| <= 1e-5 |d| + 32 eps max|x|^2, the same finite pattern."""
+    from repro_torch.data import VectorPipelineConfig, make_vectors
+
+    x = torch.from_numpy(make_vectors(VectorPipelineConfig(n=20_000, dim=128,
+                                                           n_clusters=256))).to(cuda)
+    rng = np.random.default_rng(19)
+    ids = torch.from_numpy(_edge_leaves(rng, 20_000)).to(cuda)
+    gi, gd = leaf_knn.leaf_topk(x, ids, 2)
+    hi, hd = leaf_knn.leaf_topk_plain(x, ids, 2)
+    fin = torch.isfinite(hd)
+    assert torch.equal(torch.isfinite(gd), fin)
+    max_sq = float((x * x).sum(dim=1).max())
+    err = (gd[fin] - hd[fin]).abs()
+    assert bool((err <= 1e-5 * hd[fin].abs() + 32 * 2.0 ** -23 * max_sq).all()), float(err.max())
+    assert float((gi == hi).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("metric", ("l2", "cosine"))
+@pytest.mark.parametrize("d", (768, 960, 1000))
+def test_leaf_topk_kernel_deep_rows(cuda, d, metric):
+    """Rows too deep for a 64-row tile in shared memory (d > 736 at
+    c_max = 1024; 960 is GIST's width) take the row tile in depth chunks:
+    still exact against the plain version on integer data (below 128, so
+    that every norm and product stays below 2^24)."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.integers(0, 128, (3000, d)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(_edge_leaves(rng, 3000)).to(cuda)
+    got = leaf_knn.leaf_topk(x, ids, 2, metric)
+    want = leaf_knn.leaf_topk_plain(x, ids, 2, metric)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_edge_hashes_kernel_matches_plain(cuda):
     rng = np.random.default_rng(9)
     sk = torch.randn(1000, 12, device=cuda)
@@ -116,6 +183,32 @@ def test_gather_distance_bf16_kernel_matches_plain(cuda, metric, d):
         scale = (q * q).sum(1)[:, None] + (x32 * x32).sum(1)[ids.clamp_min(0).long()]
         slack = 1e-5 if metric == "cosine" else 16 * 2.0 ** -23 * scale[fin]
         assert bool(((got[fin] - want[fin]).abs() <= 1e-5 * want[fin].abs() + slack).all())
+
+
+@pytest.mark.parametrize("row_type", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("c", (1, 7, 256, 257))
+def test_gather_distance_kernel_id_patterns(cuda, c, row_type):
+    """Id rows all padding, all valid and mixed, at C that is below, at and
+    past the 32-slot warp chunks; exact on integer data (l2, mips), also
+    for points that are not 16-byte aligned (the one-element loads)."""
+    rng = np.random.default_rng(20)
+    x32 = torch.from_numpy(_int_points(rng, 4000, 128)).to(cuda)
+    q = torch.from_numpy(_int_points(rng, 90, 128)).to(cuda)
+    ids = rng.integers(0, 4000, (90, c)).astype(np.int32)
+    ids[:30] = -1                            # all padding
+    mixed = ids[60:]
+    mixed[rng.random(mixed.shape) < 0.3] = -1
+    ids = torch.from_numpy(ids).to(cuda)
+    flat = torch.empty(4000 * 128 + 1, dtype=row_type, device=cuda)
+    offset = flat[1:].view(4000, 128)
+    offset.copy_(x32.to(row_type))
+    for pts in (x32.to(row_type), offset):
+        for metric in ("l2", "mips"):
+            nrm = point_norms(x32, metric)
+            got = gather_distance.gather_distance(pts, nrm, q, ids, metric)
+            want = gather_distance.gather_distance_plain(pts, nrm, q, ids, metric)
+            assert torch.equal(got, want), (metric, pts.data_ptr() % 16)
+    assert bool(torch.isinf(got[:30]).all())
 
 
 @pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
