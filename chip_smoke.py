@@ -18,10 +18,15 @@ Phases (any failure exits non-zero before the last line is printed):
    into its stream chunks): leaf top-k bit-exact on the integer data and
    within the stated tolerance on Gaussian data, edge hashes and merge
    bit-exact; kernel and plain times, and the least time the card could
-   take for the same work.  The leaf top-k forms its products on the tensor
-   cores with three TF32 products per float32 product (3xTF32), so its
-   bound is those at the TF32 peak; the f32 CUDA-core bound of the same
-   products stands beside it.
+   take for the same work.  The merge runs on two inputs: the build's
+   second merge (the first two chunks' reservoirs) and its last (the
+   reservoir of every chunk but the last, folded by the kernel, and the
+   last chunk's); its bound counts the bytes these rows need (each id row
+   up to its first -1, live prefixes, written slots, in 32-byte sectors;
+   B's first id alone where B is empty).  The leaf top-k forms its
+   products on the tensor cores with three TF32 products per float32
+   product (3xTF32), so its bound is those at the TF32 peak; the f32
+   CUDA-core bound of the same products stands beside it.
 2. small parity: n = 65,536 built on the card and on the CPU must give the
    identical graph and entry point, and search must give equal recall.
    Why this can be exact: with integer data below 2^24 every norm, dot
@@ -47,7 +52,7 @@ Phases (any failure exits non-zero before the last line is printed):
    1, on blocks of the built graph's rows for the 10,000 queries: float32,
    bfloat16 and int8 (bit-exact on integer and Gaussian data).  Beside the
    bound (each distinct row read once) stands the time to read every valid
-   slot's row with no reuse across queries.
+   slot's row with no reuse across queries, for each row type.
 5. Stage 1's root subproblem of the full-size build (all n points against
    its 1,000 leaders, f = 10) through ``leader_assign(use_kernels=True)``:
    the distance and top-k kernels against their plain versions and the
@@ -134,33 +139,25 @@ def phase_kernels(x, xg, seed: int) -> dict:
     """Phase 1: the build's kernels against their plain versions on the
     inputs the full-size build gives them: its own partition of ``x``, cut
     into stream chunks as the build cuts it.  Leaf top-k and edge hashes
-    run on the first chunk, the merge on the reservoirs of the first two
-    chunks (the inputs of the build's second merge)."""
-    import dataclasses
-
-    import numpy as np
+    run on the first chunk; the merge on the build's second and last merges
+    (``merge_inputs``)."""
     import torch
 
-    from repro_torch.core import pipnn, sketch
-    from repro_torch.core.hashprune import hashprune_flat
+    from repro_torch.core import sketch
     from repro_torch.core.leaf import emit_knn_edges
-    from repro_torch.core.rbc import partition_padded
-    from repro_torch.kernels import edge_hash, leaf_knn, segmented_merge
+    from repro_torch.kernels import edge_hash, leaf_knn
 
     dev = x.device
-    n, d = x.shape
-    params = pipnn.PiPNNParams(seed=seed)
-    k, l_max = params.leaf.k, params.l_max
+    d = x.shape[1]
     t0 = time.perf_counter()
-    padded = partition_padded(x, dataclasses.replace(params.rbc, seed=seed))
-    chunk = pipnn._stream_chunk_leaves(params.leaf, n, l_max, *padded.shape)
-    leaves = torch.from_numpy(padded[:2 * chunk]).to(dev)
-    ids, ids1 = leaves[:chunk], leaves[chunk:]
+    inputs = phase1_inputs(x, seed)
+    params, padded, chunk, sk = (inputs[k] for k in ("params", "padded", "chunk", "sketches"))
+    k = params.leaf.k
+    ids = torch.from_numpy(padded[:chunk]).to(dev)
     sizes = (ids >= 0).sum(dim=1).double()
     log("phase1 partition", json.dumps(dict(
         seconds=time.perf_counter() - t0, n_leaves=int(padded.shape[0]),
         chunk_leaves=chunk, chunk_leaf_size_mean=float(sizes.mean()))))
-    del padded
     out = {}
 
     # leaf top-k: the first stream chunk, C = 1024, d = 128, k = 2
@@ -204,14 +201,12 @@ def phase_kernels(x, xg, seed: int) -> dict:
 
     # edge hashes: the chunk's bidirected edges (2 * chunk * C * k entries)
     # on the build's sketches (its seeded hyperplanes, m = 12)
-    hp = torch.from_numpy(sketch.make_hyperplanes(seed, params.hash_bits, d)).to(dev)
-    sk = sketch.sketch(x, hp).contiguous()
     src, dst, _ = emit_knn_edges(ids, ki, kd)
     del ki, kd
     e = src.numel()
     kh = edge_hash.edge_hashes(sk, src, dst)
     check(torch.equal(kh, edge_hash.edge_hashes_plain(sk, src, dst)), "edge_hashes != plain")
-    skg = sketch.sketch(xg, hp).contiguous()
+    skg = sketch.sketch(xg, inputs["hyperplanes"]).contiguous()
     check(torch.equal(edge_hash.edge_hashes(skg, src, dst),
                       edge_hash.edge_hashes_plain(skg, src, dst)),
           "edge_hashes != plain on Gaussian sketches")
@@ -226,31 +221,124 @@ def phase_kernels(x, xg, seed: int) -> dict:
     log("phase1 edge_hashes", json.dumps(out["edge_hashes"]))
     del src, dst
 
-    # merge: the reservoirs of the first two chunks, each the chunk's edges
-    # reduced by hashprune_flat as the build reduces them
-    def reservoir(leaf_ids):
-        edges, _ = pipnn._chunk_edges(x, sk, leaf_ids, k=k, metric=params.metric)
-        return hashprune_flat(*edges, n_points=n, l_max=l_max)
+    # merge: the build's second merge (early in the stream) and its last
+    pairs = merge_inputs(x, inputs)
+    del padded, inputs
+    out["merge_sorted_reservoirs"] = merge_stats(pairs["early"])
+    out["merge_sorted_reservoirs"]["late"] = merge_stats(pairs["late"])
+    log("phase1 merge_sorted_reservoirs", json.dumps(out["merge_sorted_reservoirs"]))
+    return out
 
-    a, b = reservoir(ids), reservoir(ids1)
+
+def phase1_inputs(x, seed: int) -> dict:
+    """What the full-size build of ``x`` starts its stream from:
+    ``params`` (the defaults, seeded), ``padded`` (its partition, leaf ids
+    [leaves, c_max] on the host), ``chunk`` (leaves a stream chunk),
+    ``hyperplanes`` and ``sketches`` (its seeded sketches of ``x``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core import pipnn, sketch
+    from repro_torch.core.rbc import partition_padded
+
+    n, d = x.shape
+    params = pipnn.PiPNNParams(seed=seed)
+    padded = partition_padded(x, dataclasses.replace(params.rbc, seed=seed))
+    chunk = pipnn._stream_chunk_leaves(params.leaf, n, params.l_max, *padded.shape)
+    hp = torch.from_numpy(sketch.make_hyperplanes(seed, params.hash_bits, d)).to(x.device)
+    return dict(params=params, padded=padded, chunk=chunk, hyperplanes=hp,
+                sketches=sketch.sketch(x, hp).contiguous())
+
+
+def merge_inputs(x, inputs: dict) -> dict:
+    """The merge's inputs as the full-size build's stream gives them
+    (``inputs`` from ``phase1_inputs``), each chunk's edges reduced by
+    ``hashprune_flat`` as the build reduces them: ``early`` = the
+    reservoirs of the first two chunks (the build's second merge),
+    ``late`` = the reservoir after folding every chunk but the last with
+    the kernel, and the last chunk's reservoir (its last merge)."""
+    import torch
+
+    from repro_torch.core import pipnn
+    from repro_torch.core.hashprune import (hashprune_flat, merge_segmented_edges,
+                                            reservoir_init)
+    from repro_torch.core.leaf import iter_leaf_id_chunks
+
+    params, padded, chunk, sk = (inputs[k] for k in ("params", "padded", "chunk", "sketches"))
+    n, k, l_max = x.shape[0], params.leaf.k, params.l_max
+    chunks = list(iter_leaf_id_chunks(torch.from_numpy(padded).to(x.device), chunk))
+
+    def edges(leaf_ids):
+        return pipnn._chunk_edges(x, sk, leaf_ids, k=k, metric=params.metric)[0]
+
+    def reservoir(leaf_ids):
+        return hashprune_flat(*edges(leaf_ids), n_points=n, l_max=l_max)
+
+    early = (reservoir(chunks[0]), reservoir(chunks[1]) if len(chunks) > 1
+             else reservoir_init(n, l_max, x.device))
+    res = reservoir_init(n, l_max, x.device)
+    for leaf_ids in chunks[:-1]:
+        res = merge_segmented_edges(*res, *edges(leaf_ids))
+    return dict(early=early, late=(res, reservoir(chunks[-1])), chunks=len(chunks))
+
+
+def merge_live_bytes(a_ids, b_ids, out_ids) -> float:
+    """Bytes the merge must move on these inputs, in whole 32-byte sectors
+    of each row.  Live slots are a sorted prefix, so a side's live count is
+    known from its id row up to the first -1: slots [0, min(n + 1, l)).  A
+    row whose B side is empty is R(A) already: B's first id is all it
+    reads.  Any other row reads both id rows that far, the live prefixes of
+    A's and B's hashes and dists, and writes slots [0, max(n_out, nA)) of
+    the three arrays."""
+    import torch
+
+    n, l = a_ids.shape
+    start = torch.arange(n, device=a_ids.device, dtype=torch.int64) * l * 4
+
+    def sectors(count):
+        end = start + count.long() * 4
+        return torch.where(count > 0, (end - 1) // 32 - start // 32 + 1, 0)
+
+    na, nb = (a_ids >= 0).sum(1), (b_ids >= 0).sum(1)
+    n_out = (out_ids >= 0).sum(1)
+    touched = nb > 0
+    per_row = torch.where(
+        touched, sectors(torch.clamp(na + 1, max=l)) + sectors(torch.clamp(nb + 1, max=l))
+        + 2 * sectors(na) + 2 * sectors(nb) + 3 * sectors(torch.maximum(n_out, na)),
+        sectors(torch.ones_like(nb)))
+    return 32.0 * float(per_row.sum())
+
+
+def merge_stats(pair) -> dict:
+    """The merge kernel on one input pair: bit-exact against its plain
+    version, kernel and plain times, live counts, and the bound of the
+    bytes these rows need (``merge_live_bytes``)."""
+    import torch
+
+    from repro_torch.kernels import segmented_merge
+
+    a, b = pair
+    n = a.ids.shape[0]
     want = segmented_merge.merge_sorted_reservoirs_plain(*a, *b)
     got = segmented_merge.merge_sorted_reservoirs(*(t.clone() for t in a), *b)
     check(all(torch.equal(g, w) for g, w in zip(got, want)), "merge != plain")
+    live = float(merge_live_bytes(a.ids, b.ids, want[0]))
+    del got
     work = [None]
 
     def fresh():
         work[0] = tuple(t.clone() for t in a)
 
-    nbytes = float(9 * n * l_max * 4)
-    out["merge_sorted_reservoirs"] = dict(
+    return dict(
         max_abs_err=0.0, tolerance="bit-exact", valid_slots_per_row=[
-            float((a.ids >= 0).sum() / n), float((b.ids >= 0).sum() / n)],
+            float((a.ids >= 0).sum() / n), float((b.ids >= 0).sum() / n),
+            float((want[0] >= 0).sum() / n)],
+        rows_b_empty=float(((b.ids >= 0).sum(1) == 0).float().mean()),
         ms=cuda_ms(lambda: segmented_merge.merge_sorted_reservoirs(*work[0], *b), 10,
                    setup=fresh),
         plain_ms=cuda_ms(lambda: segmented_merge.merge_sorted_reservoirs_plain(*a, *b), 2),
-        bytes=nbytes, bound_by="bytes", bound_ms=1e3 * nbytes / PEAK_BYTES)
-    log("phase1 merge_sorted_reservoirs", json.dumps(out["merge_sorted_reservoirs"]))
-    return out
+        bytes=live, bound_by="bytes", bound_ms=1e3 * live / PEAK_BYTES)
 
 
 def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
@@ -346,7 +434,8 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
         ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8(*args8), 20),
         plain_ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8_plain(*args8), 3),
         library=None, library_ms=None,
-        **bound(2.0 * valid * d, float(rows * (d + 8) + common + nq * 4), PEAK_INT8_OPS))
+        **bound(2.0 * valid * d, float(rows * (d + 8) + common + nq * 4), PEAK_INT8_OPS),
+        no_reuse_ms=1e3 * valid * d / PEAK_BYTES)
     log("phase4 gather_distance_int8", json.dumps(out8))
     return {"gather_distance": out, "gather_distance_int8": out8}
 
@@ -690,6 +779,13 @@ def main() -> int:
                    tolerance=s["tolerance"])
         if name == "leaf_topk":
             row.update(bound_f32_cuda_core_ms=s["bound_f32_cuda_core_ms"])
+        if name == "merge_sorted_reservoirs":
+            late = s["late"]
+            row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],
+                       late_bound_ms=late["bound_ms"],
+                       late_valid_slots_per_row=late["valid_slots_per_row"])
+        if name == "gather_distance_int8":
+            row.update(no_reuse_ms=s["no_reuse_ms"])
         if name == "gather_distance":
             row.update(no_reuse_ms=s["no_reuse_ms"],
                        bf16_launches=full["launches"]["bfloat16"]["gather_distance"],

@@ -9,18 +9,20 @@ the ``common.cuh`` beside it); it is compiled with the checkout's nvcc
 flags into a library of its own.  The inputs are those of
 ``chip_smoke.py`` on the SIFT-like data of n points: for ``leaf``, phase
 1's (the first stream chunk of the build's own partition, k = 2); for
-``gather``, phase 4's (the full build's graph rows of each query's 4 true
-nearest neighbours, C = 256, float32 and bfloat16 rows).  Every version
-must give the checkout's output.  Each round times every version once,
-the mean of ``--reps`` launches, in an order that alternates between
-rounds.  Prints the card's name and power limit, then one JSON line with
-every round's times and their medians.
+``merge``, phase 1's two merge inputs (the build's second merge, ``early``,
+and its last, ``late``; each launch merges into a fresh copy of A, copied
+untimed); for ``gather`` and ``gather8``, phase 4's (the full build's graph
+rows of each query's 4 true nearest neighbours, C = 256; float32 and
+bfloat16 rows, or the int8 packing).  Every version must give the
+checkout's output.  Each round times every version once, the mean of
+``--reps`` launches, in an order that alternates between rounds.  Prints
+the card's name and power limit, then one JSON line with every round's
+times and their medians.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
-import dataclasses
 import json
 import pathlib
 import statistics
@@ -32,8 +34,10 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 SOURCES = {"leaf": ("leaf_knn.cu", ("pipnn_leaf_topk",)),
+           "merge": ("segmented_merge.cu", ("pipnn_merge_sorted_reservoirs",)),
            "gather": ("gather_distance.cu",
-                      ("pipnn_gather_distance", "pipnn_gather_distance_bf16"))}
+                      ("pipnn_gather_distance", "pipnn_gather_distance_bf16")),
+           "gather8": ("gather_distance_int8.cu", ("pipnn_gather_distance_int8",))}
 
 
 def build_version(csrc: pathlib.Path, kernel: str, tag: str) -> ctypes.CDLL:
@@ -60,16 +64,14 @@ def leaf_cases(x_np, seed: int, dev):
     """Phase 1's leaf top-k call: [(tag, run(lib), its output tensors)]."""
     import torch
 
-    from repro_torch.core import pipnn
-    from repro_torch.core.rbc import partition_padded
+    from chip_smoke import phase1_inputs
     from repro_torch.kernels import _build, leaf_knn
 
     x = torch.from_numpy(x_np).to(dev)
     n = x.shape[0]
-    params = pipnn.PiPNNParams(seed=seed)
-    padded = partition_padded(x, dataclasses.replace(params.rbc, seed=seed))
-    chunk = pipnn._stream_chunk_leaves(params.leaf, n, params.l_max, *padded.shape)
-    ids = torch.from_numpy(padded[:chunk]).to(dev)
+    inputs = phase1_inputs(x, seed)
+    params = inputs["params"]
+    ids = torch.from_numpy(inputs["padded"][:inputs["chunk"]]).to(dev)
     nb, c = ids.shape
     k = params.leaf.k
     oi = torch.empty((nb, c, k), dtype=torch.int32, device=dev)
@@ -81,25 +83,72 @@ def leaf_cases(x_np, seed: int, dev):
             leaf_knn.METRIC_CODES["l2"], oi.data_ptr(), od.data_ptr(), _build.stream_ptr(x)),
             "pipnn_leaf_topk")
 
-    return dict(leaves=nb, slots=c, k=k), [("leaf_topk", run, (oi, od))]
+    return dict(leaves=nb, slots=c, k=k), [("leaf_topk", run, (oi, od), None)]
+
+
+def merge_cases(x_np, seed: int, dev):
+    """Phase 1's two merge calls, each on a copy of its A reservoir."""
+    import torch
+
+    from chip_smoke import merge_inputs, phase1_inputs
+    from repro_torch.kernels import _build
+
+    x = torch.from_numpy(x_np).to(dev)
+    n = x.shape[0]
+    inputs = phase1_inputs(x, seed)
+    params = inputs["params"]
+    pairs = merge_inputs(x, inputs)
+    info, cases = dict(chunks=pairs["chunks"], l_max=params.l_max), []
+    for tag in ("early", "late"):
+        a, b = pairs[tag]
+        work = tuple(t.clone() for t in a)
+
+        def setup(a=a, work=work):
+            for w, t in zip(work, a):
+                w.copy_(t)
+
+        def run(lib, work=work, b=b):
+            _build.check(lib.pipnn_merge_sorted_reservoirs(
+                *(t.data_ptr() for t in (*work, *b)), n, params.l_max,
+                _build.stream_ptr(x)), "pipnn_merge_sorted_reservoirs")
+
+        info[f"{tag}_valid_slots_per_row"] = [float((t.ids >= 0).sum() / n) for t in (a, b)]
+        cases.append((tag, run, work, setup))
+    return info, cases
+
+
+def _search_block(x_np, q_np, seed: int, dev):
+    """Phase 4's block: the full build's graph rows of each query's 4 true
+    nearest neighbours; returns (index, queries, those neighbours [Q, 4])."""
+    import torch
+
+    import repro_torch
+    from repro_torch.core.beam_search import brute_force_knn
+
+    index = repro_torch.build(x_np, repro_torch.PiPNNParams(seed=seed), device=dev)
+    q = torch.from_numpy(q_np).to(dev)
+    truth = brute_force_knn(torch.from_numpy(x_np).to(dev), q, 10, chunk=256)
+    return index, q, torch.from_numpy(truth[:, :4]).to(dev).long()
+
+
+def _block_info(gids) -> dict:
+    import torch
+
+    return dict(queries=gids.shape[0], slots=gids.shape[1], valid=int((gids >= 0).sum()),
+                distinct_rows=torch.unique(gids[gids >= 0]).numel())
 
 
 def gather_cases(x_np, q_np, seed: int, dev):
     """Phase 4's gather calls, float32 and bfloat16 rows."""
     import torch
 
-    import repro_torch
-    from repro_torch.core.beam_search import brute_force_knn
     from repro_torch.core.pipnn import serving_index
     from repro_torch.kernels import _build, gather_distance
 
-    index = repro_torch.build(x_np, repro_torch.PiPNNParams(seed=seed), device=dev)
-    q = torch.from_numpy(q_np).to(dev)
-    truth = brute_force_knn(torch.from_numpy(x_np).to(dev), q, 10, chunk=256)
+    index, q, expand = _search_block(x_np, q_np, seed, dev)
     sv = serving_index(index, x_np, device=dev)
-    nq = q.shape[0]
-    gids = sv.graph[torch.from_numpy(truth[:, :4]).to(dev).long()].reshape(nq, -1).contiguous()
-    c = gids.shape[1]
+    gids = sv.graph[expand].reshape(q.shape[0], -1).contiguous()
+    nq, c = gids.shape
     n, d = sv.points.shape
     out = torch.empty((nq, c), device=dev)
     cases = []
@@ -112,10 +161,34 @@ def gather_cases(x_np, q_np, seed: int, dev):
                 c, gather_distance.METRIC_CODES["l2"], out.data_ptr(), _build.stream_ptr(pts)),
                 entry)
 
-        cases.append((tag, run, (out,)))
-    info = dict(queries=nq, slots=c, valid=int((gids >= 0).sum()),
-                distinct_rows=torch.unique(gids[gids >= 0]).numel())
-    return info, cases
+        cases.append((tag, run, (out,), None))
+    return _block_info(gids), cases
+
+
+def gather8_cases(x_np, q_np, seed: int, dev):
+    """Phase 4's int8 gather call on the int8 serving packing."""
+    import torch
+
+    from repro_torch.core.metrics import point_norms
+    from repro_torch.core.pipnn import serving_index
+    from repro_torch.kernels import _build, gather_distance_int8
+
+    index, q, expand = _search_block(x_np, q_np, seed, dev)
+    sv = serving_index(index, x_np, dtype="int8", device=dev)
+    gids = sv.graph[expand].reshape(q.shape[0], -1).contiguous()
+    q_norms = point_norms(q)
+    nq, c = gids.shape
+    n, d = sv.points.shape
+    out = torch.empty((nq, c), device=dev)
+
+    def run(lib):
+        _build.check(lib.pipnn_gather_distance_int8(
+            sv.points.data_ptr(), sv.scales.data_ptr(), sv.norms.data_ptr(), q.data_ptr(),
+            q_norms.data_ptr(), gids.data_ptr(), n, d, nq, c,
+            gather_distance_int8.METRIC_CODES["l2"], out.data_ptr(),
+            _build.stream_ptr(q)), "pipnn_gather_distance_int8")
+
+    return _block_info(gids), [("int8", run, (out,), None)]
 
 
 def main() -> int:
@@ -146,17 +219,20 @@ def main() -> int:
         versions[str(path)] = build_version(path.resolve(), args.kernel, f"v{i}")
     cfg = VectorPipelineConfig(n=args.n, dim=128, n_clusters=1024, seed=args.seed)
     x_np = sift_like(make_vectors(cfg))
-    if args.kernel == "leaf":
-        info, cases = leaf_cases(x_np, args.seed, dev)
+    if args.kernel in ("leaf", "merge"):
+        info, cases = (leaf_cases if args.kernel == "leaf" else merge_cases)(x_np, args.seed, dev)
     else:
-        info, cases = gather_cases(x_np, sift_like(make_queries(cfg, args.queries)),
-                                   args.seed, dev)
+        info, cases = (gather_cases if args.kernel == "gather" else gather8_cases)(
+            x_np, sift_like(make_queries(cfg, args.queries)), args.seed, dev)
     result = dict(kernel=args.kernel, n=args.n, reps=args.reps, **info)
     names = list(versions)
-    for tag, run, outs in cases:
+    for tag, run, outs, setup in cases:
+        setup = setup or (lambda: None)
+        setup()
         run(versions["checkout"])
         want = [t.clone() for t in outs]
         for name in names[1:]:
+            setup()
             run(versions[name])
             if not all(torch.equal(a, b) for a, b in zip(outs, want)):
                 print(f"kernel_ab: {tag} of {name} differs from the checkout's", file=sys.stderr)
@@ -164,7 +240,7 @@ def main() -> int:
         times = {name: [] for name in names}
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):
-                times[name].append(cuda_ms(lambda: run(versions[name]), args.reps))
+                times[name].append(cuda_ms(lambda: run(versions[name]), args.reps, setup=setup))
         result[tag] = {name: dict(ms=t, median_ms=statistics.median(t))
                        for name, t in times.items()}
     print(smi())

@@ -5,12 +5,17 @@ Replaces both Pallas kernels ``repro/kernels/gather_distance.py::
 gather_distance_int8`` (points resident in VMEM, ``pallas_call`` at
 ``:275``) and ``::gather_distance_int8_hbm`` (points streamed from HBM,
 ``:499``) with one CUDA kernel (``csrc/gather_distance_int8.cu``), as
-``gather_distance`` replaces the float32 pair.  One block per query
-quantizes the query row into shared memory with ``quantize_symmetric``;
-each warp reads neighbour rows 4 bytes a lane, sums int8 x int8 -> int32
-with ``__dp4a``, and rescales and expands with the exact float32 norms in
-the reference's order, one correctly rounded operation at a time.  The
-kernel is therefore bit-exact against the plain version on any data.
+``gather_distance`` replaces the float32 pair.  One warp takes 32 id
+slots of one query: it compacts the valid ids by ballot (padding reads
+nothing), quantizes the query with ``quantize_symmetric``'s operations
+(each lane the 16 values it multiplies; the max across its lane group),
+reads each 128-byte row as 8 lanes of 16 bytes with 8 loads in flight a
+lane, sums int8 x int8 -> int32 with ``__dp4a`` and reduces within the lane
+group, and rescales and expands with the exact float32 norms in the
+reference's order, one correctly rounded operation at a time.  The kernel
+is therefore bit-exact against the plain version on any data.  Rows whose
+d is not a multiple of 16, or points or queries not 16-byte aligned, are
+read one byte a lane by the same kernel, so any alignment is taken.
 
 Bound on the card: bytes, a d-byte row plus its scale and norm for each
 distinct valid id (padding reads nothing), the ids, queries and output.
@@ -97,8 +102,6 @@ def gather_distance_int8(points, scales, norms, queries, q_norms, nbr_ids,
         raise ValueError("gather_distance_int8: shapes of queries/scales/norms do not match")
     _build.require_cuda("gather_distance_int8", points, scales, norms, queries, q_norms,
                         nbr_ids)
-    if points.data_ptr() % 4:
-        raise ValueError("gather_distance_int8: points must be 4-byte aligned (word loads)")
     out = torch.empty((nq, c), dtype=torch.float32, device=points.device)
     rc = _build.library().pipnn_gather_distance_int8(
         points.data_ptr(), scales.data_ptr(), norms.data_ptr(), queries.data_ptr(),

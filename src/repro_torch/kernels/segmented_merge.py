@@ -3,17 +3,22 @@
 Replaces the Pallas kernel
 ``repro/kernels/segmented_merge.py::merge_sorted_reservoirs``
 (``pallas_call`` at ``:104``).  Both inputs are [n, l] reservoirs whose
-rows are sorted by (dist, id) with one slot per hash bucket and
-(-1, 0, +inf) padding at the tail.  The CUDA kernel
-(``csrc/segmented_merge.cu``) gives each row one warp: cross-side bucket
-dedup (the strictly smaller key wins, exact ties keep A), then rank
-placement (own-side survivor rank plus the other side's smaller keys),
-truncation to l and padding.  It writes the result over A in place, as the
-reference's fused step donates the reservoir.
+live slots (id != -1) are a prefix sorted by (dist, id) with one slot per
+hash bucket, and every slot past it holds the padding (-1, 0, +inf):
+``reservoir_init``, ``hashprune_flat`` and this merge all keep that
+invariant, and the CUDA kernel relies on it.  The kernel
+(``csrc/segmented_merge.cu``) gives each row one warp: live counts by
+ballot, then cross-side bucket dedup (the strictly smaller key wins, exact
+ties keep A) and rank placement (own-side survivor rank plus the other
+side's smaller keys) over the live slots only, held in registers and
+broadcast by shuffles; truncation to l.  It writes the result over A in
+place, as the reference's fused step donates the reservoir, and only slots
+[0, max(n_out, nA)): the merged prefix, then padding over A's leftover
+live slots; the slots past them already hold the padding.
 
-Bound on the card: bytes, 6 [n, l] arrays read and 3 written.  The O(l^2)
-compares per row run on shared-memory broadcasts inside the warp.  Only
-comparisons and copies: bit-exact.
+Bound on the card: bytes, each id row read up to its first -1 (B's first
+id alone where B is empty), the live prefixes of hashes and dists read and
+the written slots.  Only comparisons and copies: bit-exact.
 """
 from __future__ import annotations
 
@@ -60,9 +65,11 @@ def merge_sorted_reservoirs_plain(a_ids, a_hashes, a_dists,
 
 def merge_sorted_reservoirs(a_ids, a_hashes, a_dists, b_ids, b_hashes, b_dists):
     """R(A u B) for two per-row-sorted [n, l] reservoirs (int32 ids, int32
-    hashes, float32 dists).  Returns (ids, hashes, dists).  CPU tensors take
-    the plain version; CUDA tensors launch the kernel, which merges into the
-    A arrays in place and returns them."""
+    hashes, float32 dists) whose live slots are a sorted prefix padded with
+    (-1, 0, +inf).  Returns (ids, hashes, dists).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel, which merges into the A
+    arrays in place, writing only slots [0, max(n_out, nA)) (the slots past
+    them already hold the padding), and returns them."""
     global launches
     if a_ids.device.type == "cpu":
         return merge_sorted_reservoirs_plain(a_ids, a_hashes, a_dists,

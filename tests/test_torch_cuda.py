@@ -15,6 +15,8 @@ from repro_torch.core.hashprune import hashprune_flat
 from repro_torch.core.metrics import point_norms
 from repro_torch.kernels import (distance, edge_hash, gather_distance, gather_distance_int8,
                                  leaf_knn, segmented_merge, topk)
+from _torch_merge_cases import KINDS as MERGE_KINDS
+from _torch_merge_cases import L_VALUES, reservoir_pair
 
 pytestmark = pytest.mark.cuda
 
@@ -147,6 +149,20 @@ def test_merge_kernel_matches_plain(cuda, metric):
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
+@pytest.mark.parametrize("l", L_VALUES + (400,))
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_merge_kernel_edge_cases(cuda, kind, l):
+    """Empty sides, full rows, 33-63 live slots, exact cross-side ties, the
+    same id on both sides, l at and past the 32- and 64-slot edges (400:
+    several 64-slot segments, past 48 KB of shared memory a block); ids,
+    hashes and dists bit for bit."""
+    case = [torch.from_numpy(t).to(cuda) for t in reservoir_pair(kind, l)]
+    want = segmented_merge.merge_sorted_reservoirs_plain(*case)
+    got = segmented_merge.merge_sorted_reservoirs(*(t.clone() for t in case[:3]), *case[3:])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (kind, l)
+
+
 @pytest.mark.parametrize("metric", ("l2", "mips"))
 @pytest.mark.parametrize("d", (128, 37))
 def test_gather_distance_kernel_matches_plain(cuda, metric, d):
@@ -225,6 +241,36 @@ def test_gather_distance_int8_kernel_bit_exact(cuda, metric, d):
         args = (p8, sc, point_norms(x32, metric), q, point_norms(q, metric), ids, metric)
         assert torch.equal(gather_distance_int8.gather_distance_int8(*args),
                            gather_distance_int8.gather_distance_int8_plain(*args))
+
+
+@pytest.mark.parametrize("d", (128, 96, 37, 256))
+@pytest.mark.parametrize("c", (1, 7, 256, 257))
+def test_gather_distance_int8_kernel_id_patterns(cuda, c, d):
+    """Id rows all padding, all valid and mixed, at C below, at and past the
+    32-slot warp chunks; d one 128-byte row, part of one (96), ragged (37:
+    the one-byte lanes) and two chunks a lane (256); points at a 4-byte but
+    not 16-byte offset and queries at one float's offset (the one-byte
+    lanes too).  Gaussian data, all three metrics, bit-exact."""
+    rng = np.random.default_rng(21)
+    x32 = torch.from_numpy(rng.standard_normal((4000, d)).astype(np.float32)).to(cuda)
+    q = torch.from_numpy(rng.standard_normal((90, d)).astype(np.float32)).to(cuda)
+    ids = rng.integers(0, 4000, (90, c)).astype(np.int32)
+    ids[:30] = -1                            # all padding
+    mixed = ids[60:]
+    mixed[rng.random(mixed.shape) < 0.3] = -1
+    ids = torch.from_numpy(ids).to(cuda)
+    p8, sc = gather_distance_int8.quantize_symmetric(x32)
+    p8_off = torch.empty(4000 * d + 4, dtype=torch.int8, device=cuda)[4:].view(4000, d)
+    p8_off.copy_(p8)
+    q_off = torch.empty(90 * d + 1, device=cuda)[1:].view(90, d)
+    q_off.copy_(q)
+    for pts, qq in ((p8, q), (p8_off, q), (p8, q_off)):
+        for metric in ("l2", "mips", "cosine"):
+            args = (pts, sc, point_norms(x32, metric), qq, point_norms(q, metric), ids, metric)
+            got = gather_distance_int8.gather_distance_int8(*args)
+            want = gather_distance_int8.gather_distance_int8_plain(*args)
+            assert torch.equal(got, want), (metric, pts.data_ptr() % 16, qq.data_ptr() % 16)
+    assert bool(torch.isinf(got[:30]).all())
 
 
 @pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))

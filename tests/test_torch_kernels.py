@@ -16,6 +16,8 @@ from repro.core.hashprune import hashprune_flat as j_hashprune_flat
 from repro.core.hashprune import merge_segmented_edges as j_merge_segmented
 from repro.core.metrics import point_norms as j_point_norms
 from repro.kernels import ref
+from _torch_merge_cases import KINDS as MERGE_KINDS
+from _torch_merge_cases import L_VALUES, reservoir_pair
 from repro_torch.core.metrics import point_norms
 from repro_torch.kernels import edge_hash, gather_distance, leaf_knn, segmented_merge
 
@@ -141,6 +143,78 @@ def test_merge_plain_matches_segmented_fold_exact():
     got = merge_segmented_edges(*(torch.from_numpy(a) for a in args))
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def _assert_live_prefix(ids, hashes, dists):
+    """The reservoir layout the merge kernel relies on: each row's live
+    slots (id != -1) are a prefix in (dist, id) order with finite dists
+    (an id may stand twice, in two buckets), and every later slot holds the
+    padding (-1, 0, +inf)."""
+    ids, hashes, dists = (np.asarray(t) for t in (ids, hashes, dists))
+    live = ids != -1
+    assert not (live[:, 1:] & ~live[:, :-1]).any(), "a live slot after a padding slot"
+    assert (hashes[~live] == 0).all() and np.isposinf(dists[~live]).all()
+    assert np.isfinite(dists[live]).all()
+    d0, d1, i0, i1 = dists[:, :-1], dists[:, 1:], ids[:, :-1], ids[:, 1:]
+    assert ((d0 < d1) | ((d0 == d1) & (i0 <= i1)))[live[:, 1:]].all(), "live prefix unsorted"
+
+
+@pytest.mark.parametrize("l", L_VALUES)
+@pytest.mark.parametrize("kind", MERGE_KINDS)
+def test_merge_plain_matches_ref_on_edge_cases(kind, l):
+    """The semantics the merge kernel must meet, on the edge cases its
+    design depends on (``tests/_torch_merge_cases.py``): empty sides, full
+    rows, rows past one warp chunk, exact cross-side ties, the same id on
+    both sides, l at and past the 32- and 64-slot edges.  Exact, and the
+    inputs and the result keep the live-prefix layout."""
+    case = reservoir_pair(kind, l)
+    _assert_live_prefix(*case[:3])
+    _assert_live_prefix(*case[3:])
+    want = ref.merge_sorted_reservoirs_ref(*(jnp.asarray(t) for t in case))
+    got = segmented_merge.merge_sorted_reservoirs_plain(*(torch.from_numpy(t) for t in case))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    _assert_live_prefix(*(t.numpy() for t in got))
+
+
+def _producer_output(producer):
+    """One reservoir from each of the port's producers, on the inputs of the
+    merge tests above (edges with padding, +inf dists and duplicates)."""
+    from repro_torch.core.hashprune import hashprune_flat, merge_segmented_edges, reservoir_init
+
+    rng = np.random.default_rng(7)
+    n, e, l_max = 60, 1500, 16
+    src = rng.integers(0, n + 1, e).astype(np.int32)      # n = padding edge
+    dst = np.where(src < n, rng.integers(0, n, e), -1).astype(np.int32)
+    hashes = ((src * 31 + dst * 7) % 8).astype(np.int32)
+    dist = ((dst * 131 + src * 17) % 23 / 4.0).astype(np.float32)
+    if producer.endswith("mips"):
+        dist -= 3.0
+    dist[src == n] = np.inf
+    m = e // 16
+    dist[:m] = np.inf                                     # valid edges at +inf
+    for a in (src, dst, hashes, dist):                    # exact duplicates
+        a[m: 2 * m] = a[e // 2: e // 2 + m]
+    edges = [torch.from_numpy(a) for a in (src, dst, hashes, dist)]
+    if producer == "reservoir_init":
+        return reservoir_init(n, l_max)
+    if producer.startswith("hashprune_flat"):
+        return hashprune_flat(*edges, n_points=n, l_max=l_max)
+    a, b = _reservoir_pair(3, n=n, l_max=l_max)
+    if producer == "merge_plain":
+        return segmented_merge.merge_sorted_reservoirs_plain(
+            *(torch.from_numpy(t) for t in a + b))
+    return merge_segmented_edges(*(torch.from_numpy(t) for t in a), *edges)   # the fold
+
+
+@pytest.mark.parametrize("producer", ("reservoir_init", "hashprune_flat_l2",
+                                      "hashprune_flat_mips", "merge_plain", "fold"))
+def test_reservoir_producers_keep_live_prefix(producer):
+    """Every producer of the merge's inputs leaves the live-prefix layout
+    the merge kernel reads only the prefix of (``csrc/segmented_merge.cu``)."""
+    res = _producer_output(producer)
+    assert (np.asarray(res[0]) != -1).any() or producer == "reservoir_init"
+    _assert_live_prefix(*res)
 
 
 # ------------------------------------------------------- gather distance ---
