@@ -29,8 +29,9 @@ Phases (any failure exits non-zero before the last line is printed):
    CUDA-core bound of the same products stands beside it.
 2. small parity: n = 65,536 built on the card and on the CPU must give the
    identical graph and entry point, and search must give equal recall.
-   Why this can be exact: with integer data below 2^24 every norm, dot
-   product and distance is exact in float32 in any summation order, and
+   Why this can be exact: with integer data below 2048 whose sums stay
+   below 2^24 every norm, dot product and distance is exact in float32 in
+   any summation order, also through 3xTF32 products, and
    with dyadic hyperplanes (multiples of 1/16, drawn on the host from the
    seed) so is every sketch.  Only then do leaves, leaf top-k, reservoirs,
    prune and gather distances agree bit for bit across devices.  int8 and
@@ -56,9 +57,15 @@ Phases (any failure exits non-zero before the last line is printed):
 5. Stage 1's root subproblem of the full-size build (all n points against
    its 1,000 leaders, f = 10) through ``leader_assign(use_kernels=True)``:
    the distance and top-k kernels against their plain versions and the
-   route against the default ``topf`` route (identical ids), and the int8
-   distance kernel on the int8 packing of the same points; kernel, plain
-   and library times (``torch.cdist``, ``torch.topk``).
+   route against the default ``topf`` route (identical ids), both routes
+   timed whole, and the int8 distance kernel on the int8 packing of the
+   same points; kernel, plain and library times (``torch.cdist``,
+   ``torch.topk``).  The distance kernel forms its products as three TF32
+   products (3xTF32, as the leaf top-k), so its bound is those at the TF32
+   peak, with the f32 CUDA-core bound beside it.  It is bit-exact on the
+   integer data and, like the leaf top-k, held on the Gaussian mixture (its
+   points against the same leaders) to 1e-5 |d| + 32 eps max|x|^2: on the
+   integer data the low TF32 parts are 0, so only this check sees them.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -601,51 +608,113 @@ def phase_full(x, q, seed: int, dev) -> dict:
                 servings=servings)
 
 
-def phase_leader(x_np, seed: int) -> dict:
-    """Phase 5: Stage 1's root subproblem of the full-size build, through
-    ``leader_assign(use_kernels=True)`` as one batch: all n points against
-    the leaders ``rbc.ball_carve`` draws first (the same seeded
-    ``rng.choice``), f = fanout(0).  Then the int8 distance kernel on the
-    ``quantize_symmetric`` packing of the same points and leaders."""
+def gaussian_pairwise(dist, xg, pos, metric: str) -> dict:
+    """``dist(a, b)`` ([1, M, N] float32) on the Gaussian points ``xg``
+    against the rows ``pos`` of them (phase 5's leaders), held against
+    ``pairwise_distance_plain`` to 1e-5 |d| + 32 eps max|x|^2, phase 1's
+    tolerance: ``max_abs_err``, ``within_tolerance`` and the largest
+    error's share of its limit (``worst_share``)."""
+    from repro_torch.kernels import distance
+
+    a, b = xg[None], xg[pos][None]
+    want = distance.pairwise_distance_plain(a, b, metric)
+    err = dist(a, b).sub_(want).abs_()
+    max_err = float(err.max())
+    max_sq = float((xg * xg).sum(dim=1).max())
+    share = float(err.div_(want.abs_().mul_(1e-5).add_(32 * EPS32 * max_sq)).max())
+    return dict(max_abs_err=max_err, within_tolerance=share <= 1.0, worst_share=share)
+
+
+def phase5_inputs(x_np, seed: int) -> dict:
+    """Stage 1's root subproblem of the full-size build of ``x_np``: the
+    points on the card (``x``), the leaders ``rbc.ball_carve`` draws first
+    (the same seeded ``rng.choice``: positions ``pos``, rows ``leaders``),
+    ``f`` = fanout(0) and the metric."""
     import numpy as np
+    import torch
+
+    from repro_torch.core.rbc import RBCParams
+
+    p = RBCParams(seed=seed)
+    xt = torch.from_numpy(x_np).cuda()
+    n = xt.shape[0]
+    rng = np.random.default_rng(p.seed)
+    n_leaders = int(np.clip(round(p.p_samp * n), 2, p.leader_cap))
+    pos = torch.from_numpy(rng.choice(n, size=n_leaders, replace=False)).cuda()
+    return dict(x=xt, pos=pos, leaders=xt[pos], f=min(p.fanout_at(0), n_leaders),
+                metric=p.metric)
+
+
+def phase_leader(x_np, gauss, seed: int) -> dict:
+    """Phase 5: Stage 1's root subproblem of the full-size build
+    (``phase5_inputs``), through ``leader_assign(use_kernels=True)`` as one
+    batch, held against the default ``topf`` route, and both routes timed.
+    The distance kernel is also held on ``gauss`` (the Gaussian points
+    ``x_np`` is made from) against the same leaders' rows of it
+    (``gaussian_pairwise``).  Then the int8 distance kernel on the
+    ``quantize_symmetric`` packing of the same points and leaders."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.core.leader_assign import leader_assign
-    from repro_torch.core.rbc import RBCParams
     from repro_torch.kernels import distance, topk
     from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
 
-    p = RBCParams(seed=seed)
-    xt = torch.from_numpy(x_np).cuda()
+    inputs = phase5_inputs(x_np, seed)
+    xt, pos, leaders, f, metric = (inputs[k] for k in ("x", "pos", "leaders", "f", "metric"))
     n, d = xt.shape
-    rng = np.random.default_rng(p.seed)
-    n_leaders = int(np.clip(round(p.p_samp * n), 2, p.leader_cap))
-    pos = torch.from_numpy(rng.choice(n, size=n_leaders, replace=False)).cuda()
-    f = min(p.fanout_at(0), n_leaders)
-    leaders = xt[pos]
+    n_leaders = leaders.shape[0]
     out = {}
 
     kernels.reset_launch_counts()
-    ids = leader_assign(xt, leaders, f, metric=p.metric, use_kernels=True)
+    ids = leader_assign(xt, leaders, f, metric=metric, use_kernels=True)
     launches = _path_launches("leader assignment", ("pairwise_distance", "rowwise_topk"))
-    check(torch.equal(ids, leader_assign(xt, leaders, f, metric=p.metric)),
+    check(torch.equal(ids, leader_assign(xt, leaders, f, metric=metric)),
           "kernel-routed leader_assign != topf route")
     del ids
+    # the whole route each way: the kernels, and the default route (one
+    # matrix product, then topf's f argmin passes), which the build's Stage
+    # 1 runs on 4096-row blocks (core/rbc.py::_assign_device)
+    for name, kw in (("kernels", dict(use_kernels=True)), ("topf", {})):
+        log("phase5 route", name, json.dumps(dict(
+            call=f"leader_assign(x, leaders, {f}, metric={metric!r}"
+                 + (", use_kernels=True)" if kw else ")"),
+            rows=n, leaders=n_leaders,
+            ms=cuda_ms(lambda: leader_assign(xt, leaders, f, metric=metric, **kw), 5))))
+        torch.cuda.empty_cache()
 
     a, b = xt[None], leaders[None]
-    dk = distance.pairwise_distance(a, b, p.metric)
-    dp = distance.pairwise_distance_plain(a, b, p.metric)
+    dk = distance.pairwise_distance(a, b, metric)
+    dp = distance.pairwise_distance_plain(a, b, metric)
     check(torch.equal(dk, dp), "pairwise_distance != plain on integer data")
     del dp
+    # on integer data the low TF32 parts are 0: only non-integer data shows
+    # whether the kernel keeps the float32 result
+    xg = torch.from_numpy(gauss).cuda()
+    gs = gaussian_pairwise(lambda a, b: distance.pairwise_distance(a, b, metric), xg, pos,
+                           metric)
+    del xg
+    torch.cuda.empty_cache()
+    check(gs["within_tolerance"], "pairwise_distance Gaussian dists beyond tolerance "
+          f"(max {gs['max_abs_err']}, {gs['worst_share']} of its limit)")
+    # the kernel forms each product as three TF32 products on the tensor
+    # cores (3xTF32): its bound is those at the TF32 peak; the f32
+    # CUDA-core bound of the same products stands beside it
+    flops = 2.0 * n * n_leaders * d
+    nbytes = 4.0 * (n * d + n_leaders * d + n * n_leaders)
+    tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     out["pairwise_distance"] = dict(
-        max_abs_err=0.0, tolerance="exact on integer data (every sum below 2^24)",
+        max_abs_err=gs["max_abs_err"], gaussian_worst_share_of_tolerance=gs["worst_share"],
+        tolerance="exact on integer data below 2048 (every sum below 2^24); Gaussian "
+        "|err| <= 1e-5 |d| + 32 eps max|x|^2",
         shape=[1, n, n_leaders, d], launches=launches["pairwise_distance"],
-        ms=cuda_ms(lambda: distance.pairwise_distance(a, b, p.metric), 5),
-        plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b, p.metric), 2),
+        ms=cuda_ms(lambda: distance.pairwise_distance(a, b, metric), 5),
+        plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b, metric), 2),
         library="torch.cdist (the square root of the same matrix)",
         library_ms=cuda_ms(lambda: torch.cdist(a, b), 3),
-        **bound(2.0 * n * n_leaders * d, 4.0 * (n * d + n_leaders * d + n * n_leaders)))
+        flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
+        bound_ms=tc["bound_ms"],
+        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
     log("phase5 pairwise_distance", json.dumps(out["pairwise_distance"]))
 
     got, want = topk.rowwise_topk(dk, f), topk.rowwise_topk_plain(dk, f)
@@ -665,7 +734,7 @@ def phase_leader(x_np, seed: int) -> dict:
 
     p8, _ = quantize_symmetric(xt)
     a8, b8 = p8[None], p8[pos][None]
-    del xt
+    del xt, inputs
     kernels.reset_launch_counts()
     dk = distance.pairwise_distance_int8(a8, b8)
     launches = _path_launches("int8 pairwise", ("pairwise_distance_int8",))
@@ -745,7 +814,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    kstats.update(phase_leader(x_np, args.seed))
+    kstats.update(phase_leader(x_np, gauss, args.seed))
     log("phase5 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
@@ -777,7 +846,7 @@ def main() -> int:
                    bound_ms=s["bound_ms"], bound_by=s["bound_by"],
                    library_ms=s.get("library_ms"), library=s.get("library"),
                    tolerance=s["tolerance"])
-        if name == "leaf_topk":
+        if name in ("leaf_topk", "pairwise_distance"):
             row.update(bound_f32_cuda_core_ms=s["bound_f32_cuda_core_ms"])
         if name == "merge_sorted_reservoirs":
             late = s["late"]

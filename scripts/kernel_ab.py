@@ -6,15 +6,23 @@ alternately, in one process on one card.
 
 Each ``--baseline`` directory holds another version's kernel source (with
 the ``common.cuh`` beside it); it is compiled with the checkout's nvcc
-flags into a library of its own.  The inputs are those of
-``chip_smoke.py`` on the SIFT-like data of n points: for ``leaf``, phase
-1's (the first stream chunk of the build's own partition, k = 2); for
-``merge``, phase 1's two merge inputs (the build's second merge, ``early``,
-and its last, ``late``; each launch merges into a fresh copy of A, copied
-untimed); for ``gather`` and ``gather8``, phase 4's (the full build's graph
-rows of each query's 4 true nearest neighbours, C = 256; float32 and
-bfloat16 rows, or the int8 packing).  Every version must give the
-checkout's output.  Each round times every version once, the mean of
+flags (and its ``-I``, so a header it includes must lie beside it) into a
+library of its own.  The inputs are those of ``chip_smoke.py`` on the
+SIFT-like data of n points: for ``leaf``, phase 1's (the first stream
+chunk of the build's own partition, k = 2); for ``merge``, phase 1's two
+merge inputs (the build's second merge, ``early``, and its last, ``late``;
+each launch merges into a fresh copy of A, copied untimed); for ``gather``
+and ``gather8``, phase 4's (the full build's graph rows of each query's 4
+true nearest neighbours, C = 256; float32 and bfloat16 rows, or the int8
+packing); for ``dist`` and ``topk``, phase 5's (Stage 1's root subproblem:
+all n points against its 1,000 leaders; ``dist`` times both entries of
+``distance.cu``, float32 and the int8 packing, ``topk`` selects f = 10 from
+the float32 matrix the checkout's kernel gives).  Every version must give the
+checkout's output.  ``dist`` also holds each version's float32 entry on the
+Gaussian mixture the SIFT-like data is made from, against the same
+leaders, to ``chip_smoke.py``'s tolerance (``gaussian_pairwise``), and
+reports each one's error and whether it is within it
+(``float32_gaussian``).  Each round times every version once, the mean of
 ``--reps`` launches, in an order that alternates between rounds.  Prints
 the card's name and power limit, then one JSON line with every round's
 times and their medians.
@@ -37,7 +45,9 @@ SOURCES = {"leaf": ("leaf_knn.cu", ("pipnn_leaf_topk",)),
            "merge": ("segmented_merge.cu", ("pipnn_merge_sorted_reservoirs",)),
            "gather": ("gather_distance.cu",
                       ("pipnn_gather_distance", "pipnn_gather_distance_bf16")),
-           "gather8": ("gather_distance_int8.cu", ("pipnn_gather_distance_int8",))}
+           "gather8": ("gather_distance_int8.cu", ("pipnn_gather_distance_int8",)),
+           "dist": ("distance.cu", ("pipnn_pairwise_distance", "pipnn_pairwise_distance_int8")),
+           "topk": ("topk.cu", ("pipnn_rowwise_topk",))}
 
 
 def build_version(csrc: pathlib.Path, kernel: str, tag: str) -> ctypes.CDLL:
@@ -191,6 +201,72 @@ def gather8_cases(x_np, q_np, seed: int, dev):
     return _block_info(gids), [("int8", run, (out,), None)]
 
 
+def dist_cases(x_np, gauss, seed: int, dev):
+    """Phase 5's distance calls: float32 points against the leaders, and
+    the same on their int8 packing; the float32 case also holds each
+    version on the Gaussian points ``gauss`` (untimed)."""
+    import torch
+
+    from chip_smoke import gaussian_pairwise, phase5_inputs
+    from repro_torch.kernels import _build, distance
+    from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
+
+    p5 = phase5_inputs(x_np, seed)
+    x, leaders = p5["x"], p5["leaders"]
+    (n, d), nl = x.shape, leaders.shape[0]
+    p8, _ = quantize_symmetric(x)
+    a8, b8 = p8, p8[p5["pos"]].contiguous()
+    out = torch.empty((n, nl), device=dev)
+    out8 = torch.empty((n, nl), dtype=torch.int32, device=dev)
+
+    def run(lib):
+        _build.check(lib.pipnn_pairwise_distance(
+            x.data_ptr(), leaders.data_ptr(), 1, n, nl, d, distance.METRIC_CODES[p5["metric"]],
+            out.data_ptr(), _build.stream_ptr(x)), "pipnn_pairwise_distance")
+
+    def run8(lib):
+        _build.check(lib.pipnn_pairwise_distance_int8(
+            a8.data_ptr(), b8.data_ptr(), 1, n, nl, d, out8.data_ptr(), _build.stream_ptr(x)),
+            "pipnn_pairwise_distance_int8")
+
+    def held(lib):
+        def dist(a, b):
+            o = torch.empty((1, n, nl), device=dev)
+            _build.check(lib.pipnn_pairwise_distance(
+                a.data_ptr(), b.data_ptr(), 1, n, nl, d, distance.METRIC_CODES[p5["metric"]],
+                o.data_ptr(), _build.stream_ptr(a)), "pipnn_pairwise_distance")
+            return o
+
+        xg = torch.from_numpy(gauss).to(dev)
+        return gaussian_pairwise(dist, xg, p5["pos"], p5["metric"])
+
+    info = dict(rows=n, leaders=nl, dim=d)
+    return info, [("float32", run, (out,), None, held), ("int8", run8, (out8,), None)]
+
+
+def topk_cases(x_np, seed: int, dev):
+    """Phase 5's top-k call on the float32 distance matrix."""
+    import torch
+
+    from chip_smoke import phase5_inputs
+    from repro_torch.kernels import _build, distance
+
+    p5 = phase5_inputs(x_np, seed)
+    dk = distance.pairwise_distance(p5["x"][None], p5["leaders"][None], p5["metric"])
+    f = p5["f"]
+    del p5
+    _, n, nl = dk.shape
+    ids = torch.empty((n, f), dtype=torch.int32, device=dev)
+    vals = torch.empty((n, f), device=dev)
+
+    def run(lib):
+        _build.check(lib.pipnn_rowwise_topk(dk.data_ptr(), n, nl, f, ids.data_ptr(),
+                                            vals.data_ptr(), _build.stream_ptr(dk)),
+                     "pipnn_rowwise_topk")
+
+    return dict(rows=n, columns=nl, k=f), [("rowwise_topk", run, (ids, vals), None)]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("kernel", choices=sorted(SOURCES))
@@ -218,15 +294,19 @@ def main() -> int:
     for i, path in enumerate(args.baseline):
         versions[str(path)] = build_version(path.resolve(), args.kernel, f"v{i}")
     cfg = VectorPipelineConfig(n=args.n, dim=128, n_clusters=1024, seed=args.seed)
-    x_np = sift_like(make_vectors(cfg))
-    if args.kernel in ("leaf", "merge"):
-        info, cases = (leaf_cases if args.kernel == "leaf" else merge_cases)(x_np, args.seed, dev)
-    else:
+    gauss = make_vectors(cfg)
+    x_np = sift_like(gauss)
+    if args.kernel in ("gather", "gather8"):
         info, cases = (gather_cases if args.kernel == "gather" else gather8_cases)(
             x_np, sift_like(make_queries(cfg, args.queries)), args.seed, dev)
+    elif args.kernel == "dist":
+        info, cases = dist_cases(x_np, gauss, args.seed, dev)
+    else:
+        cases_of = {"leaf": leaf_cases, "merge": merge_cases, "topk": topk_cases}
+        info, cases = cases_of[args.kernel](x_np, args.seed, dev)
     result = dict(kernel=args.kernel, n=args.n, reps=args.reps, **info)
     names = list(versions)
-    for tag, run, outs, setup in cases:
+    for tag, run, outs, setup, *held in cases:
         setup = setup or (lambda: None)
         setup()
         run(versions["checkout"])
@@ -237,6 +317,8 @@ def main() -> int:
             if not all(torch.equal(a, b) for a, b in zip(outs, want)):
                 print(f"kernel_ab: {tag} of {name} differs from the checkout's", file=sys.stderr)
                 return 1
+        if held:
+            result[f"{tag}_gaussian"] = {name: held[0](versions[name]) for name in names}
         times = {name: [] for name in names}
         for r in range(args.rounds):
             for name in (names if r % 2 == 0 else names[::-1]):

@@ -2,34 +2,289 @@
 //
 // pipnn_pairwise_distance replaces the Pallas kernel repro/kernels/
 // distance.py::pairwise_distance: [B, M, D] x [B, N, D] -> [B, M, N] f32
-// with the norm expansion fused.  One block computes one 64x64 output tile
-// of one batch entry.  The two row panels are staged through shared memory
-// in 32-deep slices; every thread owns a 4x4 patch of the tile and
-// accumulates it with float32 FMAs on the CUDA cores (no TF32: on integer
-// data below 2^24 the result is then exact, as the plain version's is).
-// The row and column norms come from the same slices, so each input element
-// is read from device memory once per tile.  The epilogue is that of
-// core/leader_assign.py::leader_dists, one correctly rounded operation at a
-// time (no FMA contraction):
-//   l2:     max((|a|^2 + |b|^2) - 2 ip, 0)
-//   cosine: 1 - ip / max(|a| |b|, 1e-30)
-//   mips:   -ip
+// with the norm expansion fused.  Bound: operations.  The products run on
+// the tensor cores, mma.sync m16n8k8 TF32 with three TF32 products per f32
+// product (the 3xTF32 split of mma_tf32.cuh), so the bound is 3 * 2*B*M*N*D
+// FLOPs at the TF32 peak (or the output's bytes, where D is small), with
+// the f32 CUDA-core bound beside it.  Exactness: on integer data below 2048
+// whose sums all stay below 2^24 every product is exact, so l2 and mips
+// equal the plain version bit for bit (cosine within a few ulps of its
+// rounded square roots); on other data the result is within a few ulps of
+// float32's.  Design:
+// - Persistent blocks of 8 warps, one per SM, walk 128x128 output tiles in
+//   order (column tiles fastest, so the blocks at work share their row
+//   panels in L2).  The warps split a tile 2 x 4; each keeps 4 x 4 MMA
+//   accumulators and issues the three products as three sweeps over them.
+// - Both 128-row panels stream in 64-deep slices through a 2-stage cp.async
+//   ring (16-byte copies where D % 4 == 0 and both inputs are 16-byte
+//   aligned, else 4-byte copies; zero past the edges), K-major at a pitch
+//   of 4 mod 32 floats, so ldmatrix reads the fragments without bank
+//   conflicts.  The ring runs on from one tile into the next, so the next
+//   tile's slices load while a tile's epilogue runs.  64-deep slices halve
+//   the block barriers of 32-deep ones (a 2-stage ring of them fills 137 KB).
+// - Each 32 deep of a slice sums into a fresh accumulator that is added to
+//   the tile's total in f32.
+// - The place of a tile and the epilogue's metric are worked out once a
+//   tile, not once a stage or an element.
+// - The row and column norms are f32 FMA sums on the CUDA cores from the
+//   same staged slices, in k order (one thread a row).
+// - The epilogue is that of core/leader_assign.py::leader_dists, one
+//   correctly rounded operation at a time (no FMA contraction):
+//     l2:     max((|a|^2 + |b|^2) - 2 ip, 0)
+//     cosine: 1 - ip / max(|a| |b|, 1e-30)
+//     mips:   -ip
+//   Each lane stores two adjacent columns (8 bytes; a quad covers a whole
+//   32-byte sector) where N is even.
 //
 // pipnn_pairwise_distance_int8 replaces ::pairwise_distance_int8: exact
-// squared L2 on int8 inputs, |a|^2 + |b|^2 - 2 ip in int32.  The same tile
-// walk, with the rows staged as 32-bit words of four int8 values and every
-// product summed with __dp4a.
-//
-// Bound: the f32 kernel, 2*B*M*N*D FLOPs at the f32 CUDA-core rate (or the
-// output's bytes, where D is small); the int8 kernel, the int32 output's
-// bytes.
+// squared L2 on int8 inputs, |a|^2 + |b|^2 - 2 ip in int32.  One block
+// computes one 64x64 output tile of one batch entry; the two row panels are
+// staged through shared memory in 32-word slices of four int8 values, every
+// thread owns a 4x4 patch of the tile and sums every product with __dp4a.
+// Bound: the int32 output's bytes.
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
+using namespace pipnn::mma_tf32;
+
+// ---- float32: 3xTF32 on the tensor cores ----
+constexpr int FM = 128;           // rows of an output tile (of a)
+constexpr int FN = 128;           // columns of an output tile (rows of b)
+constexpr int WARPS_M = 2;        // warps along the rows
+constexpr int WARPS_N = 4;        // and along the columns
+constexpr int MIN_BLOCKS = 1;     // blocks an SM (the register budget)
+constexpr int KP = 32;            // depth summed into one fresh accumulator
+constexpr int KS = 64;            // depth of one ring stage, a multiple of KP
+constexpr int NST = 2;            // ring stages
+constexpr int SB = KS + 4;        // slice pitch in floats (4 mod 32)
+constexpr int F_THREADS = 32 * WARPS_M * WARPS_N;
+constexpr int MT = FM / WARPS_M / 16;   // 16-row MMA tiles of a warp
+constexpr int NT = FN / WARPS_N / 8;    // 8-column MMA tiles of a warp
+constexpr size_t F_SMEM = 4 * ((size_t)NST * (FM + FN) * SB + FM + FN);
+static_assert(F_THREADS >= FM + FN, "one thread for each row norm of the two panels");
+static_assert(NT % 2 == 0, "ldmatrix loads 8-column tiles in pairs");
+static_assert(KS % KP == 0 && KP % 8 == 0, "a stage holds whole fresh-accumulator depths");
+
+struct F32Tile {
+  int batch, row0, col0;
+};
+
+__device__ __forceinline__ F32Tile f32_tile(int t, int tiles_m, int tiles_n) {
+  const int per_batch = tiles_m * tiles_n;
+  const int rem = t % per_batch;
+  return {t / per_batch, (rem / tiles_n) * FM, (rem % tiles_n) * FN};
+}
+
+// R rows of a [rows, D] matrix from row0, depth [k0, k0 + KS), into dst
+// (pitch SB); zero past the last row and past D
+template <int VEC, int R>
+__device__ __forceinline__ void copy_slice(float* dst, const float* m, int rows, int row0, int D,
+                                           int k0) {
+  constexpr int PER_ROW = KS / VEC;
+  for (int e = threadIdx.x; e < R * PER_ROW; e += F_THREADS) {
+    const int r = e / PER_ROW;
+    const int k = k0 + (e % PER_ROW) * VEC;
+    const bool ok = row0 + r < rows && k < D;
+    cp_async<VEC>(dst + r * SB + (k - k0), ok ? m + (size_t)(row0 + r) * D + k : m, ok);
+  }
+}
+
+template <int METRIC>
+__device__ __forceinline__ float f32_dist(float ip, float a2, float b2) {
+  if constexpr (METRIC == pipnn::kMips)
+    return -ip;
+  else if constexpr (METRIC == pipnn::kCosine)
+    return __fsub_rn(1.f, __fdiv_rn(ip, fmaxf(__fmul_rn(sqrtf(a2), sqrtf(b2)), 1e-30f)));
+  else
+    return pipnn::clamp_zero(__fsub_rn(__fadd_rn(a2, b2), __fmul_rn(2.f, ip)));
+}
+
+// the warp's share of a finished tile: two adjacent columns a lane, so
+// each quad stores a whole 32-byte sector (8-byte stores where N is even)
+template <int METRIC>
+__device__ __forceinline__ void store_tile(const float (&acc)[MT][NT][4], const float* a_norm,
+                                           const float* b_norm, float* out, F32Tile t, int M,
+                                           int N, int wr, int wc) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const bool pairs = N % 2 == 0;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wr + mt * 16 + g + 8 * h;
+      const int r = t.row0 + rl;
+      if (r >= M) continue;
+      const float a2 = a_norm[rl];
+      float* orow = out + ((size_t)t.batch * M + r) * N;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int cl = wc + nt * 8 + 2 * t4;
+        const int c = t.col0 + cl;
+        const float2 b2 = *reinterpret_cast<const float2*>(b_norm + cl);
+        const float d0 = f32_dist<METRIC>(acc[mt][nt][2 * h], a2, b2.x);
+        const float d1 = f32_dist<METRIC>(acc[mt][nt][2 * h + 1], a2, b2.y);
+        if (pairs) {
+          if (c < N) *reinterpret_cast<float2*>(orow + c) = make_float2(d0, d1);
+        } else {
+          if (c < N) orow[c] = d0;
+          if (c + 1 < N) orow[c + 1] = d1;
+        }
+      }
+    }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(F_THREADS, MIN_BLOCKS)
+pairwise_distance_kernel(const float* __restrict__ a, const float* __restrict__ b, int M, int N,
+                         int D, int metric, int tiles_m, int tiles_n, int n_tiles,
+                         float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                          // [NST][FM + FN][SB]: a's, then b's slice
+  float* a_norm = ring + NST * (FM + FN) * SB; // [FM]
+  float* b_norm = a_norm + FM;                 // [FN]
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wr = (warp / WARPS_N) * (FM / WARPS_M);   // the warp's rows of the tile
+  const int wc = (warp % WARPS_N) * (FN / WARPS_N);   // and its columns
+  const int S = D > 0 ? (D + KS - 1) / KS : 1; // stages a tile (D = 0: one of zeros)
+  const int tiles = (n_tiles - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;   // this block's
+  const long long units = (long long)tiles * S;
+
+  // ring units are issued in order: stage si of tile ti (at it) into slot
+  // slot_i; the tile's place is worked out once a tile
+  int ti = blockIdx.x, si = 0, slot_i = 0;
+  F32Tile it = f32_tile(ti, tiles_m, tiles_n);
+  auto issue = [&]() {
+    float* dst = ring + slot_i * (FM + FN) * SB;
+    copy_slice<VEC, FM>(dst, a + (size_t)it.batch * M * D, M, it.row0, D, si * KS);
+    copy_slice<VEC, FN>(dst + FM * SB, b + (size_t)it.batch * N * D, N, it.col0, D, si * KS);
+    slot_i = slot_i == NST - 1 ? 0 : slot_i + 1;
+    if (++si == S) {
+      si = 0;
+      ti += gridDim.x;
+      if (ti < n_tiles) it = f32_tile(ti, tiles_m, tiles_n);
+    }
+  };
+#pragma unroll
+  for (int p = 0; p < NST - 1; ++p) {
+    if (p < units) issue();
+    cp_commit();
+  }
+
+  float acc[MT][NT][4];
+  float nrm = 0.f;   // threads < FM: row tid of a's panel; < FM + FN: row tid - FM of b's
+  int tc = blockIdx.x, s = 0, slot = 0;
+  for (long long u = 0; u < units; ++u) {
+    cp_wait<NST - 2>();
+    __syncthreads();   // unit u landed; unit u-1's slot is free
+    if (u + NST - 1 < units) issue();
+    cp_commit();
+    const float* As = ring + slot * (FM + FN) * SB;
+    const float* Bs = As + FM * SB;
+
+    // this slice's share of the norms: an FMA chain in k order
+    if (s == 0) nrm = 0.f;
+    if (tid < FM + FN) {
+      const float4* nv = reinterpret_cast<const float4*>(As + tid * SB);   // Bs = As + FM * SB
+#pragma unroll
+      for (int j = 0; j < KS / 4; ++j) {
+        const float4 x = nv[j];
+        nrm = fmaf(x.x, x.x, nrm);
+        nrm = fmaf(x.y, x.y, nrm);
+        nrm = fmaf(x.z, x.z, nrm);
+        nrm = fmaf(x.w, x.w, nrm);
+      }
+    }
+
+#pragma unroll
+    for (int kp = 0; kp < KS; kp += KP) {
+      float part[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[mt][nt][e] = 0.f;
+#pragma unroll
+      for (int k8 = kp; k8 < kp + KP; k8 += 8) {
+        // A: matrices (rows 0-7 | 8-15) x (k 0-3 | 4-7); B: per pair of
+        // 8-column tiles, (columns) x (k 0-3 | 4-7)
+        const int m = lane >> 3, rr = lane & 7;
+        uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          uint32_t raw[4];
+          ldmatrix_x4(raw, As + (wr + mt * 16 + rr + (m & 1) * 8) * SB + k8 + (m >> 1) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split(__uint_as_float(raw[i]), ah[mt][i], al[mt][i]);
+        }
+        uint32_t bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int np = 0; np < NT / 2; ++np) {
+          uint32_t raw[4];
+          ldmatrix_x4(raw, Bs + (wc + (2 * np + (m >> 1)) * 8 + rr) * SB + k8 + (m & 1) * 4);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            split(__uint_as_float(raw[i]), bh[2 * np + (i >> 1)][i & 1],
+                  bl[2 * np + (i >> 1)][i & 1]);
+        }
+        // three sweeps over the independent accumulators, so that no MMA
+        // waits on the one before it
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma(part[mt][nt], al[mt], bh[nt][0], bh[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma(part[mt][nt], ah[mt], bl[nt][0], bl[nt][1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) mma(part[mt][nt], ah[mt], bh[nt][0], bh[nt][1]);
+      }
+      if (s == 0 && kp == 0) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = part[mt][nt][e];
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
+      }
+    }
+
+    if (s == S - 1) {
+      // the tile is complete: norms to shared memory, then the epilogue
+      if (tid < FM) a_norm[tid] = nrm;
+      else if (tid < FM + FN) b_norm[tid - FM] = nrm;
+      __syncthreads();
+      const F32Tile t = f32_tile(tc, tiles_m, tiles_n);
+      if (metric == pipnn::kMips)
+        store_tile<pipnn::kMips>(acc, a_norm, b_norm, out, t, M, N, wr, wc);
+      else if (metric == pipnn::kCosine)
+        store_tile<pipnn::kCosine>(acc, a_norm, b_norm, out, t, M, N, wr, wc);
+      else
+        store_tile<pipnn::kL2>(acc, a_norm, b_norm, out, t, M, N, wr, wc);
+      tc += gridDim.x;
+    }
+    slot = slot == NST - 1 ? 0 : slot + 1;
+    s = s == S - 1 ? 0 : s + 1;
+  }
+}
+
+// ---- int8: __dp4a on the CUDA cores ----
 constexpr int BM = 64;
 constexpr int BN = 64;
-constexpr int DK = 32;   // f32 elements, or int8 words, per slice
+constexpr int DK = 32;   // int8 words a slice
 constexpr int PAD = 4;
 constexpr int THREADS = 256;
 
@@ -41,85 +296,6 @@ __device__ __forceinline__ Tile tile_of(int block, int tiles_m, int tiles_n) {
   const int per_batch = tiles_m * tiles_n;
   const int rem = block % per_batch;
   return {block / per_batch, (rem / tiles_n) * BM, (rem % tiles_n) * BN};
-}
-
-__global__ void __launch_bounds__(THREADS)
-pairwise_distance_kernel(const float* __restrict__ a, const float* __restrict__ b, int M, int N,
-                         int D, int metric, int tiles_m, int tiles_n, float* __restrict__ out) {
-  __shared__ __align__(16) float As[DK][BM + PAD];
-  __shared__ __align__(16) float Bs[DK][BN + PAD];
-  __shared__ float a_norm[BM];
-  __shared__ float b_norm[BN];
-
-  const Tile t = tile_of(blockIdx.x, tiles_m, tiles_n);
-  const float* A = a + (size_t)t.batch * M * D;
-  const float* B = b + (size_t)t.batch * N * D;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float norm_part = 0.f;  // threads < 64: row norm; 64..127: column norm
-
-  for (int k0 = 0; k0 < D; k0 += DK) {
-    // stage the slice: a warp reads 32 consecutive floats of one row
-    for (int e = tid; e < BM * DK; e += THREADS) {
-      const int kk = e % DK, r = e / DK, gk = k0 + kk;
-      const int ra = t.row0 + r, rb = t.col0 + r;
-      As[kk][r] = (ra < M && gk < D) ? A[(size_t)ra * D + gk] : 0.f;
-      Bs[kk][r] = (rb < N && gk < D) ? B[(size_t)rb * D + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < DK; ++kk) {
-      const float4 av4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 bv4 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {av4.x, av4.y, av4.z, av4.w};
-      const float bv[4] = {bv4.x, bv4.y, bv4.z, bv4.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (tid < BM) {
-      for (int kk = 0; kk < DK; ++kk) norm_part = fmaf(As[kk][tid], As[kk][tid], norm_part);
-    } else if (tid < BM + BN) {
-      const int c = tid - BM;
-      for (int kk = 0; kk < DK; ++kk) norm_part = fmaf(Bs[kk][c], Bs[kk][c], norm_part);
-    }
-    __syncthreads();
-  }
-  if (tid < BM) a_norm[tid] = norm_part;
-  else if (tid < BM + BN) b_norm[tid - BM] = norm_part;
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = t.row0 + ty * 4 + i;
-    if (r >= M) continue;
-    const float a2 = a_norm[ty * 4 + i];
-    float* orow = out + ((size_t)t.batch * M + r) * N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = t.col0 + tx * 4 + j;
-      if (c >= N) continue;
-      const float ip = acc[i][j];
-      const float b2 = b_norm[tx * 4 + j];
-      float dv;
-      if (metric == pipnn::kMips) {
-        dv = -ip;
-      } else if (metric == pipnn::kCosine) {
-        dv = __fsub_rn(1.f, __fdiv_rn(ip, fmaxf(__fmul_rn(sqrtf(a2), sqrtf(b2)), 1e-30f)));
-      } else {
-        dv = pipnn::clamp_zero(__fsub_rn(__fadd_rn(a2, b2), __fmul_rn(2.f, ip)));
-      }
-      orow[c] = dv;
-    }
-  }
 }
 
 // word w (int8 elements 4w..4w+3) of row r of a [rows, D] int8 matrix,
@@ -212,19 +388,52 @@ long long n_blocks(int B, int M, int N, int* tiles_m, int* tiles_n) {
   return (long long)B * *tiles_m * *tiles_n;
 }
 
+template <int VEC>
+cudaError_t launch_f32(const float* a, const float* b, int B, int M, int N, int D, int metric,
+                       float* out, cudaStream_t stream) {
+  auto kernel = pairwise_distance_kernel<VEC>;
+  // once per device: allow the ring's shared memory and size the
+  // persistent grid (the blocks that fit on every SM at once)
+  static int grid[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (grid[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)F_SMEM);
+    if (err != cudaSuccess) return err;
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, F_THREADS, F_SMEM);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    grid[dev] = sms * per_sm;
+  }
+  const int tiles_m = (M + FM - 1) / FM, tiles_n = (N + FN - 1) / FN;
+  const long long n_tiles = (long long)B * tiles_m * tiles_n;
+  if (n_tiles > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  const long long blocks = n_tiles < grid[dev] ? n_tiles : grid[dev];
+  if (blocks > 0)
+    kernel<<<(unsigned)blocks, F_THREADS, F_SMEM, stream>>>(a, b, M, N, D, metric, tiles_m,
+                                                            tiles_n, (int)n_tiles, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // a [B, M, D] f32, b [B, N, D] f32 -> out [B, M, N] f32
 PIPNN_EXPORT int pipnn_pairwise_distance(const void* a, const void* b, int B, int M, int N, int D,
                                          int metric, void* out, void* stream) {
-  int tm, tn;
-  const long long blocks = n_blocks(B, M, N, &tm, &tn);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  if (blocks > 0)
-    pairwise_distance_kernel<<<(unsigned)blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b), M, N, D, metric, tm, tn,
-        static_cast<float*>(out));
-  return cudaGetLastError();
+  const float* pa = static_cast<const float*>(a);
+  const float* pb = static_cast<const float*>(b);
+  float* po = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies need every row of both inputs to start on a 16-byte boundary
+  if (D % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0 &&
+      reinterpret_cast<uintptr_t>(b) % 16 == 0)
+    return launch_f32<4>(pa, pb, B, M, N, D, metric, po, s);
+  return launch_f32<1>(pa, pb, B, M, N, D, metric, po, s);
 }
 
 // a [B, M, D] int8, b [B, N, D] int8 -> out [B, M, N] int32

@@ -7,23 +7,16 @@
 // FLOPs of products (one d-long product per unordered pair: the distances
 // are symmetric); its rows are a few hundred KB and come from L2 after the
 // first touch.  The products run on the tensor cores (mma.sync m16n8k8
-// TF32, three per f32 product, below), so the bound is three TF32 products
-// at the TF32 peak, not the f32 CUDA-core peak.  The kernel forms every
-// ordered pair, twice that work, which keeps each row's top-k within its
-// own block.
+// TF32, three per f32 product: mma_tf32.cuh), so the bound is three TF32
+// products at the TF32 peak, not the f32 CUDA-core peak.  The kernel forms
+// every ordered pair, twice that work, which keeps each row's top-k within
+// its own block.
 //
-// Why the result is still the float32 one (3xTF32): every operand x is
-// split into hi = tf32(x) (round to nearest, ties away, as cvt.rna, done in
-// integer operations because the conversion pipe is slow) and lo = x - hi
-// (exact in f32; the MMA reads its top 19 bits).  Each product is formed as
-// lo*hi + hi*lo + hi*hi, every partial product exact, summed in f32.  The
-// dropped lo*lo term and the bits of lo the MMA drops are below 2^-21 of
-// |a_i b_i|.  Each 32-deep stage sums into a fresh accumulator that is then
-// added to the tile's total with an f32 add, so the tensor cores' own
-// accumulation only ever rounds values of a stage's size.  On integer data
-// below 2048 (SIFT's [0, 255]) lo = 0 and every partial sum is an integer
-// below 2^24, so the distances are exact in any order and equal the plain
-// version's bit for bit.  Norms are f32 sums on the CUDA cores.
+// Why the result is still the float32 one: the 3xTF32 split, each 32-deep
+// stage summed into a fresh accumulator.  On integer data below 2048
+// (SIFT's [0, 255]) every partial sum is an integer below 2^24, so the
+// distances are exact in any order and equal the plain version's bit for
+// bit.  Norms are f32 sums on the CUDA cores.
 //
 // Design:
 // - A block of 4 warps takes one leaf and every GROUPS-th 64-row tile of
@@ -62,8 +55,11 @@
 //   through shared memory.  Every comparison is pipnn::lex_less, so ties go
 //   to the lower column.
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
+
+using namespace pipnn::mma_tf32;
 
 constexpr int BM = 64;            // rows of a row tile: 2 warps x 32
 constexpr int BN = 64;            // columns of a column tile: 2 warps x 32
@@ -75,56 +71,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int GROUPS = 4;         // blocks per leaf
 constexpr int MAX_SMEM = 232448 - 64;  // dynamic shared memory a block may use,
                                        // less the static words
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// VEC floats from src to shared dst, or zeros when !ok
-template <int VEC>
-__device__ __forceinline__ void cp_async(float* dst, const float* src, bool ok) {
-  const uint32_t s = smem_u32(dst);
-  const int bytes = ok ? VEC * 4 : 0;
-  if constexpr (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// cvt.rna.tf32.f32 in integer operations (the conversion pipe is slow):
-// round the magnitude to 10 explicit mantissa bits, ties away from zero
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = __float_as_uint(x - __uint_as_float(hi));   // exact; the MMA reads its top 19 bits
-}
-
-// four 8x8 b16 matrices, one 16-byte row address per lane (lanes 8m..8m+7
-// give matrix m's rows); read as 8 rows x 4 floats, lane (g, t) receives
-// word t of row g of each, which is the TF32 MMA fragment layout
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* row) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(row)));
-}
-
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // 64 gathered rows, depth [k0, k0 + len), into dst (pitch ld): row r is
 // leaf position pos0 + r; padding, positions past C and depth past d are 0

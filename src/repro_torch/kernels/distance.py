@@ -3,12 +3,17 @@
 ``pairwise_distance`` replaces the Pallas kernel ``repro/kernels/
 distance.py::pairwise_distance`` (``_dist_kernel``, ``pallas_call`` at
 ``:91``): [B, M, D] x [B, N, D] -> [B, M, N] float32 with the norm
-expansion fused.  The CUDA kernel (``csrc/distance.cu``) tiles the output
-64x64 a block, stages both row panels through shared memory and sums with
-float32 FMAs on the CUDA cores (no TF32), taking the row and column norms
-from the same tiles; its epilogue is that of ``core.leader_assign.
-leader_dists``, one correctly rounded operation at a time.  Bound on the
-card: operations, 2*B*M*N*D float32 FLOPs at the CUDA-core rate (or the
+expansion fused.  The CUDA kernel (``csrc/distance.cu``) forms the products
+on the tensor cores with three TF32 products per float32 product (3xTF32):
+persistent blocks walk 128x128 output tiles, both row panels stream in
+64-deep slices through a 2-stage ``cp.async`` ring (each 32 deep summed
+into a fresh accumulator), and the row and column norms are float32 FMA
+sums on the CUDA cores from the same slices.  Its epilogue is that of
+``core.leader_assign.leader_dists``, one correctly rounded operation at a
+time.  On integer data below 2048 (with every sum below
+2^24) l2 and mips are exact and equal the plain version bit for bit;
+otherwise the result is within a few float32 ulps.  Bound on the card:
+operations, 3 * 2*B*M*N*D TF32 FLOPs at the tensor-core rate (or the
 output's bytes, where D is small).
 
 ``pairwise_distance_int8`` replaces ``::pairwise_distance_int8``

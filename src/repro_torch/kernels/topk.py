@@ -14,9 +14,13 @@ rowwise_topk`` (``_topk_kernel``, ``pallas_call`` at ``:70``; its selection
 rule is ``repro/kernels/leaf_knn.py::_merge_topk``): the k smallest entries
 of each row of an existing [B, M, N] matrix, ascending, ties to the lower
 column, and id -1 in every slot whose value is not finite.  The CUDA kernel
-(``csrc/topk.cu``) gives each row one warp: every lane keeps a sorted
-(value, column) list in registers and the lanes merge theirs with shuffles.
-Bound on the card: bytes, the matrix read once.
+(``csrc/topk.cu``) gives each row one warp, which reads it in 1024-column
+chunks with all loads in flight (16-byte lanes where rows are 16-byte
+aligned), bounds each chunk's top k by the k-th smallest of its 32 lane
+minima, and ranks the few columns under that bar exactly, together with
+the running list, in a per-warp shared-memory buffer (in rounds where they
+overflow it).  k is a runtime argument up to 32, one slot a lane.  Bound
+on the card: bytes, the matrix read once.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from repro_torch.kernels import _build
 _SIGN_FLIP = 0x7FFFFFFF
 _LO = 1 << 31
 _HI = 1 << 32
-MAX_K = 16    # largest k the rowwise_topk kernel is built for
+MAX_K = 32    # largest k the rowwise_topk kernel takes: one slot a lane
 
 launches = 0   # rowwise_topk kernel launches since the last reset
 

@@ -295,6 +295,74 @@ def test_pairwise_distance_kernel_matches_plain(cuda, metric, b, m, n, d):
     assert bool(((got - want).abs() <= 1e-5 * want.abs() + atol).all())
 
 
+def _int_panels(rng, b, m, n, d, hi=256):
+    return (torch.from_numpy(rng.integers(0, hi, (b, m, d)).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, hi, (b, n, d)).astype(np.float32)))
+
+
+def _check_pairwise(a, bb, metric):
+    """Integer data: l2 and mips bit for bit, cosine within 4 eps."""
+    got = distance.pairwise_distance(a, bb, metric)
+    want = distance.pairwise_distance_plain(a, bb, metric)
+    if metric == "cosine":
+        assert float((got - want).abs().max()) <= 4 * 2.0 ** -23
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+@pytest.mark.parametrize("b,m,n,d", [(2, 300, 259, 1), (2, 129, 127, 37), (1, 257, 385, 128),
+                                     (3, 130, 200, 960), (2, 130, 129, 0)])
+def test_pairwise_distance_kernel_tile_edges(cuda, metric, b, m, n, d):
+    """M and N off the 128x128 tiles (odd N takes the 4-byte stores), D of
+    one element, ragged (37: the 4-byte copies), one 128-deep tile and 30
+    stages (960, integers below 128 so that every sum stays below 2^24),
+    D = 0 (every tile still written: 0, -0 or 1), B > 1.  Exact on integer
+    data; Gaussian within 1e-5 |d| + 1e-4 (|a|^2 + |b|^2)."""
+    rng = np.random.default_rng(22)
+    a, bb = (t.to(cuda) for t in _int_panels(rng, b, m, n, d, 128 if d > 128 else 256))
+    _check_pairwise(a, bb, metric)
+    a, bb = a.normal_(), bb.normal_()
+    got = distance.pairwise_distance(a, bb, metric)
+    want = distance.pairwise_distance_plain(a, bb, metric)
+    scale = (a * a).sum(-1)[:, :, None] + (bb * bb).sum(-1)[:, None, :]
+    atol = 1e-5 if metric == "cosine" else 1e-4 * scale
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + atol).all())
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
+def test_pairwise_distance_kernel_offset_views(cuda, metric):
+    """Inputs one float past a 16-byte boundary take the 4-byte copies at
+    D = 128; exact on integer data all the same."""
+    rng = np.random.default_rng(23)
+    a, bb = (t.to(cuda) for t in _int_panels(rng, 2, 300, 260, 128))
+    a_off = torch.empty(a.numel() + 1, device=cuda)[1:].view(a.shape)
+    b_off = torch.empty(bb.numel() + 1, device=cuda)[1:].view(bb.shape)
+    a_off.copy_(a)
+    b_off.copy_(bb)
+    for x, y in ((a_off, bb), (a, b_off), (a_off, b_off)):
+        _check_pairwise(x, y, metric)
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips"))
+def test_pairwise_distance_kernel_gaussian_within_tolerance(cuda, metric):
+    """Gaussian-mixture points against 1,000 of them, held to phase 5's
+    tolerance |err| <= 1e-5 |d| + 32 eps max|x|^2, which a kernel that
+    drops the two lo products of the 3xTF32 split misses (integer data
+    below 2048 cannot tell: there lo = 0)."""
+    from repro_torch.data import VectorPipelineConfig, make_vectors
+
+    x = torch.from_numpy(make_vectors(VectorPipelineConfig(n=20_000, dim=128,
+                                                           n_clusters=256))).to(cuda)
+    rng = np.random.default_rng(24)
+    leaders = x[torch.from_numpy(rng.choice(20_000, 1000, replace=False)).to(cuda)]
+    got = distance.pairwise_distance(x[None], leaders[None], metric)
+    want = distance.pairwise_distance_plain(x[None], leaders[None], metric)
+    max_sq = float((x * x).sum(dim=1).max())
+    err = (got - want).abs()
+    assert bool((err <= 1e-5 * want.abs() + 32 * 2.0 ** -23 * max_sq).all()), float(err.max())
+
+
 @pytest.mark.parametrize("b,m,n,d", [(1, 2000, 1000, 128), (2, 70, 130, 37)])
 def test_pairwise_distance_int8_kernel_exact(cuda, b, m, n, d):
     g = torch.Generator(device=cuda).manual_seed(15)
@@ -309,8 +377,19 @@ def test_pairwise_distance_int8_kernel_exact(cuda, b, m, n, d):
                        distance.pairwise_distance_int8_plain(av, bb[:1]))
 
 
-@pytest.mark.parametrize("k", (1, 2, 10, 16))
-@pytest.mark.parametrize("b,m,n", [(1, 5000, 1000), (2, 130, 11), (1, 37, 4097)])
+TOPK_K = (1, 2, 10, 16, 17, 32)
+
+
+def _check_topk(d, k):
+    got = topk.rowwise_topk(d, k)
+    want = topk.rowwise_topk_plain(d, k)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), k
+    return got
+
+
+@pytest.mark.parametrize("k", TOPK_K)
+@pytest.mark.parametrize("b,m,n", [(1, 5000, 1000), (2, 130, 11), (1, 37, 4097), (1, 40, 1),
+                                   (3, 50, 31), (1, 20, 100_000)])
 def test_rowwise_topk_kernel_exact(cuda, k, b, m, n):
     """Ties, +inf masks, -1 ids, fewer finite entries than k.  Exact."""
     rng = np.random.default_rng(16)
@@ -319,10 +398,73 @@ def test_rowwise_topk_kernel_exact(cuda, k, b, m, n):
     d[0, 0] = np.inf
     d[0, 1, 2:] = np.inf
     d = torch.from_numpy(d).to(cuda)
-    got = topk.rowwise_topk(d, k)
-    want = topk.rowwise_topk_plain(d, k)
-    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = _check_topk(d, k)
     assert bool((got[0][0, 0] == -1).all())
+
+
+def _continuous_rows(rng, m, n):
+    """Squared distances of Gaussian points to n Gaussian leaders, as phase
+    5 gives them: distinct continuous values."""
+    x = rng.standard_normal((m, 16)).astype(np.float32)
+    lead = rng.standard_normal((n, 16)).astype(np.float32)
+    return ((x[:, None, :] - lead[None, :, :]) ** 2).sum(-1)[None]
+
+
+@pytest.mark.parametrize("k", TOPK_K)
+def test_rowwise_topk_kernel_continuous_rows(cuda, k):
+    """Continuous rows at N = 1000, from a 16-byte aligned matrix (the
+    16-byte lanes) and from a view one float past it (the 4-byte lanes).
+    Exact."""
+    d = torch.from_numpy(_continuous_rows(np.random.default_rng(24), 3000, 1000)).to(cuda)
+    _check_topk(d, k)
+    off = torch.empty(d.numel() + 1, device=cuda)[1:].view(d.shape)
+    off.copy_(d)
+    _check_topk(off, k)
+
+
+def _adversarial_rows(rng, n):
+    """Rows built against the kernel's bar and buffer: the small values all
+    in one lane (for 16-byte lanes: columns 0-3 mod 128; for 4-byte lanes:
+    0 mod 32), a whole row of one value and a row of 0/1 values (more
+    candidates than the 256-entry buffer), fewer finite entries than any k,
+    mostly +inf, -0.0 beside +0.0, and -inf entries."""
+    c = np.arange(n)
+    rows = []
+    for lane_cols in (c % 128 < 4, c % 32 == 0):
+        r = rng.uniform(100, 200, n).astype(np.float32)
+        r[lane_cols] = rng.uniform(0, 1, int(lane_cols.sum()))
+        rows.append(r)
+    rows.append(np.full(n, 7.0, np.float32))
+    rows.append(rng.integers(0, 2, n).astype(np.float32))
+    few = np.full(n, np.inf, np.float32)
+    few[rng.choice(n, min(n, 5), replace=False)] = rng.uniform(0, 1, min(n, 5))
+    rows.append(few)
+    mostly = rng.uniform(0, 1, n).astype(np.float32)
+    mostly[rng.random(n) < 0.95] = np.inf
+    rows.append(mostly)
+    zeros = np.where(rng.random(n) < 0.5, -0.0, 0.0).astype(np.float32)
+    zeros[rng.random(n) < 0.5] = 1.0
+    rows.append(zeros)
+    neg = rng.uniform(0, 1, n).astype(np.float32)
+    neg[rng.choice(n, min(n, 3), replace=False)] = -np.inf
+    rows.append(neg)
+    return np.stack(rows)[None]
+
+
+@pytest.mark.parametrize("k", TOPK_K)
+@pytest.mark.parametrize("n", (1000, 4097))
+def test_rowwise_topk_kernel_adversarial_rows(cuda, k, n):
+    """Exact on every adversarial row (``_adversarial_rows``), through the
+    16-byte lanes (N = 1000) and the 4-byte lanes (N = 4097)."""
+    d = torch.from_numpy(_adversarial_rows(np.random.default_rng(25), n)).to(cuda)
+    ids, vals = _check_topk(d, k)
+    assert bool((ids[0, 2] == torch.arange(k, device=cuda)).all())   # one value: lowest columns
+
+
+def test_rowwise_topk_kernel_refuses_k_above_32(cuda):
+    d = torch.zeros((1, 4, 100), device=cuda)
+    with pytest.raises(ValueError, match="k <= 32"):
+        topk.rowwise_topk(d, 33)
 
 
 def test_leader_assign_kernel_route_on_the_card(cuda):

@@ -100,7 +100,7 @@ def _masked_matrix(rng, b, m, n, hi=6):
     return d
 
 
-@pytest.mark.parametrize("k", (1, 3, 10, 16))
+@pytest.mark.parametrize("k", (1, 3, 10, 16, 17, 32))
 @pytest.mark.parametrize("b,m,n", [(1, 37, 200), (2, 130, 11), (1, 4, 256)])
 def test_rowwise_topk_plain_exact(k, b, m, n):
     """TPU kernel #10 in interpret mode, with ties, +inf masks, -1 ids, k
