@@ -11,12 +11,14 @@ the paper's defaults (``PiPNNParams()``).  The data is synthetic and SIFT-like
 
 Phases (any failure exits non-zero before the last line is printed):
 
-0. setup: the card's name and power limit; build the eight CUDA kernels
+0. setup: the card's name and power limit; build the CUDA kernels
    from ``src/repro_torch/kernels/csrc`` (nvcc, sm_90a) and time the build.
 1. the build's three kernels against their plain PyTorch versions on the
    card, on the inputs the full-size build gives them (its partition, cut
    into its stream chunks): leaf top-k bit-exact on the integer data and
-   within the stated tolerance on Gaussian data, edge hashes and merge
+   within the stated tolerance on Gaussian data (and bit-exact at k = 16,
+   its lists in shared memory, on the chunk's first 2,048 leaves), edge
+   hashes and merge
    bit-exact; kernel and plain times, and the least time the card could
    take for the same work.  The merge runs on two inputs: the build's
    second merge (the first two chunks' reservoirs) and its last (the
@@ -60,7 +62,8 @@ Phases (any failure exits non-zero before the last line is printed):
    route against the default ``topf`` route (identical ids), both routes
    timed whole, and the int8 distance kernel on the int8 packing of the
    same points; kernel, plain and library times (``torch.cdist``,
-   ``torch.topk``).  The distance kernel forms its products as three TF32
+   ``torch.topk``; beside the int8 kernel ``torch._int_mm``, which forms
+   only its products).  The distance kernel forms its products as three TF32
    products (3xTF32, as the leaf top-k), so its bound is those at the TF32
    peak, with the f32 CUDA-core bound beside it.  It is bit-exact on the
    integer data and, like the leaf top-k, held on the Gaussian mixture (its
@@ -185,6 +188,7 @@ def phase_kernels(x, xg, seed: int) -> dict:
     err = float(err.max())
     idx_agree = float((gi == hi).float().mean())
     del gi, gd, hi, hd, fin
+    wide = leaf_wide(x, ids)
     # work this chunk needs: one d-long product (2d FLOPs) for each unordered
     # pair of distinct valid points of a leaf, as the distances are
     # symmetric; each distinct point row read once, the ids read and the
@@ -203,7 +207,8 @@ def phase_kernels(x, xg, seed: int) -> dict:
         plain_ms=cuda_ms(lambda: leaf_knn.leaf_topk_plain(x, ids, k, block=16), 2),
         flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
         bound_ms=tc["bound_ms"],
-        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
+        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES),
+        **wide)
     log("phase1 leaf_topk", json.dumps(out["leaf_topk"]))
 
     # edge hashes: the chunk's bidirected edges (2 * chunk * C * k entries)
@@ -235,6 +240,27 @@ def phase_kernels(x, xg, seed: int) -> dict:
     out["merge_sorted_reservoirs"]["late"] = merge_stats(pairs["late"])
     log("phase1 merge_sorted_reservoirs", json.dumps(out["merge_sorted_reservoirs"]))
     return out
+
+
+def leaf_wide(x, ids) -> dict:
+    """The leaf top-k at k = 16 (k > 8: its lists in shared memory) on the
+    first 2,048 leaves of the chunk ``ids``, bit-exact against its plain
+    version on the integer data; its time beside the default k's on the
+    same leaves."""
+    import torch
+
+    from repro_torch.kernels import leaf_knn
+
+    k = 16
+    part = ids[:2048].contiguous()
+    got = leaf_knn.leaf_topk(x, part, k)
+    want = leaf_knn.leaf_topk_plain(x, part, k, block=16)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"leaf_topk at k = {k} != plain on integer data")
+    del got, want
+    return {f"k{k}_leaves": int(part.shape[0]),
+            f"k{k}_ms": cuda_ms(lambda: leaf_knn.leaf_topk(x, part, k), 5),
+            f"k{k}_default_k_ms_same_leaves": cuda_ms(lambda: leaf_knn.leaf_topk(x, part, 2), 5)}
 
 
 def phase1_inputs(x, seed: int) -> dict:
@@ -741,11 +767,15 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     check(torch.equal(dk, distance.pairwise_distance_int8_plain(a8, b8)),
           "pairwise_distance_int8 != plain")
     del dk
+    # torch._int_mm forms only the products (no norms, no expansion): a
+    # yardstick for the store-bound floor, not the same function
+    a0, b0t = a8[0], b8[0].T
     out["pairwise_distance_int8"] = dict(
         max_abs_err=0.0, tolerance="exact (int32)", launches=launches["pairwise_distance_int8"],
         ms=cuda_ms(lambda: distance.pairwise_distance_int8(a8, b8), 5),
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_int8_plain(a8, b8), 2),
-        library=None, library_ms=None,
+        library=None, library_ms=None, cross_term_library="torch._int_mm",
+        cross_term_library_ms=cuda_ms(lambda: torch._int_mm(a0, b0t), 5),
         **bound(2.0 * n * n_leaders * d, n * d + n_leaders * d + 4.0 * n * n_leaders,
                 PEAK_INT8_OPS))
     log("phase5 pairwise_distance_int8", json.dumps(out["pairwise_distance_int8"]))
@@ -848,6 +878,11 @@ def main() -> int:
                    tolerance=s["tolerance"])
         if name in ("leaf_topk", "pairwise_distance"):
             row.update(bound_f32_cuda_core_ms=s["bound_f32_cuda_core_ms"])
+        if name == "leaf_topk":
+            row.update({k: v for k, v in s.items() if k.startswith("k16_")})
+        if name == "pairwise_distance_int8":
+            row.update(cross_term_library=s["cross_term_library"],
+                       cross_term_library_ms=s["cross_term_library_ms"])
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

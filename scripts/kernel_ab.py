@@ -4,12 +4,16 @@ alternately, in one process on one card.
     git archive <commit> src/repro_torch/kernels/csrc | tar -x -C build/ab
     python scripts/kernel_ab.py gather --baseline build/ab/src/repro_torch/kernels/csrc
 
+Kernels: leaf, hash, merge, gather, gather8, dist, topk.
+
 Each ``--baseline`` directory holds another version's kernel source (with
 the ``common.cuh`` beside it); it is compiled with the checkout's nvcc
 flags (and its ``-I``, so a header it includes must lie beside it) into a
 library of its own.  The inputs are those of ``chip_smoke.py`` on the
 SIFT-like data of n points: for ``leaf``, phase 1's (the first stream
-chunk of the build's own partition, k = 2); for ``merge``, phase 1's two
+chunk of the build's own partition, k = 2); for ``hash``, phase 1's (that
+chunk's bidirected edges, from the checkout's leaf top-k, on the build's
+sketches, m = 12); for ``merge``, phase 1's two
 merge inputs (the build's second merge, ``early``, and its last, ``late``;
 each launch merges into a fresh copy of A, copied untimed); for ``gather``
 and ``gather8``, phase 4's (the full build's graph rows of each query's 4
@@ -42,6 +46,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 SOURCES = {"leaf": ("leaf_knn.cu", ("pipnn_leaf_topk",)),
+           "hash": ("edge_hash.cu", ("pipnn_edge_hashes",)),
            "merge": ("segmented_merge.cu", ("pipnn_merge_sorted_reservoirs",)),
            "gather": ("gather_distance.cu",
                       ("pipnn_gather_distance", "pipnn_gather_distance_bf16")),
@@ -94,6 +99,33 @@ def leaf_cases(x_np, seed: int, dev):
             "pipnn_leaf_topk")
 
     return dict(leaves=nb, slots=c, k=k), [("leaf_topk", run, (oi, od), None)]
+
+
+def hash_cases(x_np, seed: int, dev):
+    """Phase 1's edge-hash call: the first chunk's edges on the build's
+    sketches."""
+    import torch
+
+    from chip_smoke import phase1_inputs
+    from repro_torch.core.leaf import emit_knn_edges
+    from repro_torch.kernels import _build, leaf_knn
+
+    x = torch.from_numpy(x_np).to(dev)
+    inputs = phase1_inputs(x, seed)
+    ids = torch.from_numpy(inputs["padded"][:inputs["chunk"]]).to(dev)
+    src, dst, _ = emit_knn_edges(ids, *leaf_knn.leaf_topk(x, ids, inputs["params"].leaf.k))
+    sk = inputs["sketches"]
+    del x, inputs, ids
+    e, m = src.numel(), sk.shape[1]
+    out = torch.empty(e, dtype=torch.int32, device=dev)
+
+    def run(lib):
+        _build.check(lib.pipnn_edge_hashes(sk.data_ptr(), src.data_ptr(), dst.data_ptr(), e, m,
+                                           out.data_ptr(), _build.stream_ptr(sk)),
+                     "pipnn_edge_hashes")
+
+    return (dict(edges=e, hash_bits=m, valid_share=float((src >= 0).float().mean())),
+            [("edge_hashes", run, (out,), None)])
 
 
 def merge_cases(x_np, seed: int, dev):
@@ -302,7 +334,8 @@ def main() -> int:
     elif args.kernel == "dist":
         info, cases = dist_cases(x_np, gauss, args.seed, dev)
     else:
-        cases_of = {"leaf": leaf_cases, "merge": merge_cases, "topk": topk_cases}
+        cases_of = {"leaf": leaf_cases, "hash": hash_cases, "merge": merge_cases,
+                    "topk": topk_cases}
         info, cases = cases_of[args.kernel](x_np, args.seed, dev)
     result = dict(kernel=args.kernel, n=args.n, reps=args.reps, **info)
     names = list(versions)

@@ -1,16 +1,17 @@
 """Measure the rate at which one card issues ``mma.sync`` tensor-core
 products, the ceiling of any kernel built on them (the leaf top-k and the
 float32 pairwise distance form their products as ``mma.sync.m16n8k8``
-TF32, three per float32 product).
+TF32, three per float32 product; the int8 pairwise distance as
+``mma.sync.m16n8k32`` s8).
 
     python scripts/mma_rate.py
 
 Each warp keeps 16 independent accumulators and issues 16 MMAs an
 iteration on operands held in registers, so neither memory nor latency
 limits it.  Prints the card's name and power limit, then one JSON line
-with each shape's TFLOP/s (the mean of five timed launches after one
-warm-up), beside the dense peak of NVIDIA's data sheet, which only
-``wgmma`` reaches.
+with each shape's TFLOP/s (TOP/s for s8; the mean of five timed
+launches after one warm-up), beside the dense peak of NVIDIA's data
+sheet, which only ``wgmma`` reaches.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ SOURCE = r"""
 template <int KIND>
 __global__ void __launch_bounds__(256) mma_loop(int iters, float* out) {
   float c[16][4] = {};
+  int ci[16][4] = {};
   uint32_t a0 = threadIdx.x, a1 = a0 * 3u, a2 = a0 * 5u, a3 = a0 * 7u, b0 = a0 * 11u,
            b1 = a0 * 13u;
   for (int it = 0; it < iters; ++it) {
@@ -46,16 +48,22 @@ __global__ void __launch_bounds__(256) mma_loop(int iters, float* out) {
                      "{%4,%5}, {%6}, {%0,%1,%2,%3};\n"
                      : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
                      : "r"(a0), "r"(a1), "r"(b0));
-      else
+      else if constexpr (KIND == 2)
         asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
                      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
                      : "+f"(c[j][0]), "+f"(c[j][1]), "+f"(c[j][2]), "+f"(c[j][3])
+                     : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      else
+        asm volatile("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, "
+                     "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+                     : "+r"(ci[j][0]), "+r"(ci[j][1]), "+r"(ci[j][2]), "+r"(ci[j][3])
                      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
     }
   }
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) s += c[j][0] + c[j][1] + c[j][2] + c[j][3];
+  for (int j = 0; j < 16; ++j)
+    s += c[j][0] + c[j][1] + c[j][2] + c[j][3] + (float)(ci[j][0] + ci[j][1] + ci[j][2] + ci[j][3]);
   if (s == 1.2345f) out[0] = s;   // keeps the loop; never true in practice
 }
 
@@ -65,7 +73,8 @@ int mma_rate_run(int kind, int blocks, int iters, void* out, void* stream) {
   float* o = static_cast<float*>(out);
   if (kind == 0) mma_loop<0><<<blocks, 256, 0, s>>>(iters, o);
   else if (kind == 1) mma_loop<1><<<blocks, 256, 0, s>>>(iters, o);
-  else mma_loop<2><<<blocks, 256, 0, s>>>(iters, o);
+  else if (kind == 2) mma_loop<2><<<blocks, 256, 0, s>>>(iters, o);
+  else mma_loop<3><<<blocks, 256, 0, s>>>(iters, o);
   return cudaGetLastError();
 }
 """
@@ -76,7 +85,8 @@ ITERS = 4096        # loop iterations a warp, 16 MMAs each
 # name, kind, FLOPs of one MMA, dense data-sheet peak in TFLOP/s
 SHAPES = (("tf32_m16n8k8", 0, 2 * 16 * 8 * 8, 495.0),
           ("tf32_m16n8k4", 1, 2 * 16 * 8 * 4, 495.0),
-          ("bf16_m16n8k16", 2, 2 * 16 * 8 * 16, 989.0))
+          ("bf16_m16n8k16", 2, 2 * 16 * 8 * 16, 989.0),
+          ("s8_m16n8k32", 3, 2 * 16 * 8 * 32, 1979.0))
 
 
 def main() -> int:

@@ -36,12 +36,21 @@ def iter_leaf_id_chunks(leaves_padded: torch.Tensor, chunk: int):
         yield ids
 
 
+def check_k(k: int) -> None:
+    """Raise ``ValueError`` unless the leaf k-NN parameter is at least 1 (the
+    reference fails on k < 1 too; k = 0 would build an edgeless graph)."""
+    if k < 1:
+        raise ValueError(f"LeafParams.k must be at least 1, got {k}")
+
+
 def leaf_knn(points: torch.Tensor, leaf_ids: torch.Tensor, *, k: int,
              metric: str = "l2"):
-    """Per leaf, the k nearest co-leaf neighbours of every point.
+    """Per leaf, the k nearest co-leaf neighbours of every point (k >= 1; on
+    the card k <= ``kernels.leaf_knn.MAX_K``).
 
     Returns (in-leaf positions [B, C, k], dists [B, C, k]); padding rows and
     missing neighbours are (-1, +inf), ties go to the lower position."""
+    check_k(k)
     return leaf_topk(points, leaf_ids, k, metric)
 
 

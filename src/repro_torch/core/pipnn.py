@@ -34,7 +34,8 @@ from repro_torch.core import sketch as _sketch
 from repro_torch.core.beam_search import medoid
 from repro_torch.core.hashprune import (INVALID_ID, Reservoir, merge_segmented_edges,
                                         reservoir_init)
-from repro_torch.core.leaf import LeafParams, emit_knn_edges, iter_leaf_id_chunks, leaf_knn
+from repro_torch.core.leaf import (LeafParams, check_k, emit_knn_edges, iter_leaf_id_chunks,
+                                   leaf_knn)
 from repro_torch.core.rbc import (RBCParams, leaves_to_padded, padded_coverage,
                                   partition_padded)
 from repro_torch.core.robust_prune import final_prune
@@ -171,6 +172,7 @@ def build(x, params: PiPNNParams | None = None, *, leaves: list[np.ndarray] | No
     each phase end) and ``stats`` the reference's keys."""
     dev = resolve_device(device)
     params = params or PiPNNParams()
+    check_k(params.leaf.k)   # before Stage 1
     x_host = _as_host_f32(x)
     n, d = x_host.shape
     xt = (x if isinstance(x, torch.Tensor) and x.device == dev and x.dtype == torch.float32

@@ -54,6 +54,14 @@
 //   row merge their lists with shuffles, then the two warps that share it
 //   through shared memory.  Every comparison is pipnn::lex_less, so ties go
 //   to the lower column.
+// - k = 1..8 instantiate K = k with those lists in registers.  k = 9..32 run
+//   K = 16 or 32, whose lists would not fit in registers: each row's sorted
+//   list of K (dist, column) lives in shared memory, owned by one thread of
+//   the first two warps.  After each column tile the warps write their
+//   distances into a column-major [64 x 64] buffer, and each owner folds its
+//   row's 64 candidates into its list (one test against the K-th, a sorted
+//   insert for the few that pass).  Only the first k slots are written: the
+//   first k of the top-K under the (dist, column) order are the top-k.
 #include "common.cuh"
 #include "mma_tf32.cuh"
 
@@ -154,13 +162,13 @@ __device__ __forceinline__ float row_dists(float (&dv)[4][2], const float (&acc)
   return best;
 }
 
-// (-1, +inf) for every row of the row tile at row0 (a tile without a valid row)
-template <int K>
+// (-1, +inf) for every row of the row tile at row0 (a tile without a valid
+// row); ko slots a row
 __device__ __forceinline__ void write_empty_rows(int* out_idx, float* out_dist, int leaf,
-                                                 int row0, int C) {
+                                                 int row0, int C, int ko) {
   const int nr = min(BM, C - row0);
-  for (int e = threadIdx.x; e < nr * K; e += THREADS) {
-    const size_t o = ((size_t)leaf * C + row0) * K + e;
+  for (int e = threadIdx.x; e < nr * ko; e += THREADS) {
+    const size_t o = ((size_t)leaf * C + row0) * ko + e;
     out_idx[o] = -1;
     out_dist[o] = CUDART_INF_F;
   }
@@ -168,29 +176,45 @@ __device__ __forceinline__ void write_empty_rows(int* out_idx, float* out_dist, 
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
+constexpr int MAX_REG_K = 8;      // K up to this keeps its lists in registers
+constexpr int CBP = BM + 4;       // pitch of the wide path's column-major candidate buffer
+
+// words of the wide path's lists ([BM][K + 1] dists and columns) and
+// candidate buffer ([BN][CBP]); none for K <= MAX_REG_K
+__host__ __device__ constexpr int wide_words(int K) {
+  return K > MAX_REG_K ? 2 * BM * (K + 1) + BN * CBP : 0;
+}
+
 // shared memory: row tile of resident depth da, ring, row norms and their
-// halves, column norms, ids, valid column tiles, per-tile flags
-inline size_t smem_bytes(int C, int da) {
+// halves, column norms, ids, valid column tiles, per-tile flags, and the
+// wide path's lists and candidates
+inline size_t smem_bytes(int C, int da, int K) {
   const int tiles = (C + BM - 1) / BM;
   return 4 * ((size_t)BM * (da + 4) + (size_t)NST * BN * SB + BM + THREADS + 2 * (size_t)C +
-              2 * (size_t)tiles);
+              2 * (size_t)tiles + wide_words(K));
 }
 
 // the row tile's resident depth: all of d when it fits, else the depth cut
 // into the fewest equal chunks (multiples of KS) that fit; 0 if none does
-inline int resident_depth(int C, int d) {
+inline int resident_depth(int C, int d, int K) {
   const int dp = round_up(d, KS);
   for (int n = 1; n <= dp / KS; ++n) {
     const int da = round_up((dp + n - 1) / n, KS);
-    if (smem_bytes(C, da) <= (size_t)MAX_SMEM) return da;
+    if (smem_bytes(C, da, K) <= (size_t)MAX_SMEM) return da;
   }
   return 0;
 }
 
+// K: the list length; ko (<= K) slots a row are written, k = ko.  For
+// K <= MAX_REG_K, ko == K.
 template <int K, int VEC>
 __global__ void __launch_bounds__(THREADS, 3)
 leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids, int C, int d,
-                 int DA, int metric, int* __restrict__ out_idx, float* __restrict__ out_dist) {
+                 int DA, int metric, int ko, int* __restrict__ out_idx,
+                 float* __restrict__ out_dist) {
+  constexpr bool WIDE = K > MAX_REG_K;
+  constexpr int KR = WIDE ? 1 : K;            // register list length
+  const int KO = WIDE ? ko : K;               // slots a row in the output
   extern __shared__ __align__(16) float smem[];
   __shared__ int s_width, s_nvt;
   const int DP = round_up(d, KS);
@@ -206,6 +230,9 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
   int* ids_s = reinterpret_cast<int*>(c_norm + C);   // [C]
   int* vt = ids_s + C;                        // [tiles] column tiles to walk
   int* tflag = vt + tiles;                    // [tiles] tile holds a valid id
+  float* wd = reinterpret_cast<float*>(tflag + tiles);   // wide: [BM][K + 1] list dists
+  int* wi = reinterpret_cast<int*>(wd + BM * (K + 1));   // wide: [BM][K + 1] list columns
+  float* cb = reinterpret_cast<float*>(wi + BM * (K + 1));   // wide: [BN][CBP] candidates
 
   const int leaf = blockIdx.x / GROUPS;
   const int grp = blockIdx.x % GROUPS;
@@ -223,7 +250,7 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
     for (int p = it * BM + tid; p < min(C, (it + 1) * BM); p += THREADS) mine |= ids_g[p] >= 0;
   if (!__syncthreads_or(mine)) {
     for (int it = grp; it < tiles; it += GROUPS)
-      write_empty_rows<K>(out_idx, out_dist, leaf, it * BM, C);
+      write_empty_rows(out_idx, out_dist, leaf, it * BM, C, KO);
     return;
   }
   if (tid == 0) s_width = 0;
@@ -254,7 +281,7 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
   for (int it = grp; it < tiles; it += GROUPS) {
     const int row0 = it * BM;
     if (!tflag[it]) {
-      write_empty_rows<K>(out_idx, out_dist, leaf, row0, C);
+      write_empty_rows(out_idx, out_dist, leaf, row0, C, KO);
       continue;
     }
     __syncthreads();   // the previous row tile's readers are done with As, the ring, a_norm
@@ -280,15 +307,23 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
     const int mact = min(2, max(0, (width - row0 - wr + 15) / 16));
     bool rv[2][2] = {{false, false}, {false, false}};
     float a2[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    float bd[4][K];                           // lists of rows (mt, h) at 2 * mt + h
-    int bi[4][K];
+    float bd[4][KR];                          // lists of rows (mt, h) at 2 * mt + h
+    int bi[4][KR];
 #pragma unroll
     for (int q = 0; q < 4; ++q)
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
+      for (int j = 0; j < KR; ++j) {
         bd[q][j] = CUDART_INF_F;
         bi[q][j] = 0x7fffffff;
       }
+    if constexpr (WIDE) {
+      if (tid < BM) {                         // the owner of row tid's list
+        for (int j = 0; j < K; ++j) {
+          wd[tid * (K + 1) + j] = CUDART_INF_F;
+          wi[tid * (K + 1) + j] = 0x7fffffff;
+        }
+      }
+    }
     float acc[2][4][4];
     float cn = 0.f;                           // column-norm partial (first walk)
 
@@ -450,72 +485,122 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
             best = row_dists<pipnn::kMips>(dv, acc[mt], h, a2[mt][h], b2v, cok, rok, r, c0);
           else
             best = row_dists<pipnn::kCosine>(dv, acc[mt], h, a2[mt][h], b2v, cok, rok, r, c0);
-          // one test for the row's 8 candidates; most tiles stop here
-          if (best <= bd[q][K - 1] && best < CUDART_INF_F) {
+          if constexpr (WIDE) {
+            // every candidate of the row to the buffer, +inf where none
+            const int rl = wr + mt * 16 + g + 8 * h;
+#pragma unroll
+            for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+              for (int cc = 0; cc < 2; ++cc)
+                cb[(wc + nt * 8 + 2 * t4 + cc) * CBP + rl] = dv[nt][cc];
+          } else if (best <= bd[q][KR - 1] && best < CUDART_INF_F) {
+            // one test for the row's 8 candidates; most tiles stop here
 #pragma unroll
             for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
               for (int cc = 0; cc < 2; ++cc) {
                 const int c = col0 + wc + nt * 8 + 2 * t4 + cc;
                 if (dv[nt][cc] < CUDART_INF_F &&
-                    pipnn::lex_less(dv[nt][cc], c, bd[q][K - 1], bi[q][K - 1]))
-                  topk_insert<K>(bd[q], bi[q], dv[nt][cc], c);
+                    pipnn::lex_less(dv[nt][cc], c, bd[q][KR - 1], bi[q][KR - 1]))
+                  topk_insert<KR>(bd[q], bi[q], dv[nt][cc], c);
               }
           }
         }
+      if constexpr (WIDE) {
+        // each owner folds its row's 64 candidates, in column order, into
+        // its sorted list; the next writes to cb follow the next unit's
+        // barrier
+        __syncthreads();
+        if (tid < BM) {
+          float* ld = wd + tid * (K + 1);
+          int* li = wi + tid * (K + 1);
+          float td = ld[K - 1];
+          int ti = li[K - 1];
+          for (int c = 0; c < BN; ++c) {
+            const float v = cb[c * CBP + tid];
+            const int col = col0 + c;
+            if (v < CUDART_INF_F && pipnn::lex_less(v, col, td, ti)) {
+              int j = K - 1;
+              for (; j > 0 && pipnn::lex_less(v, col, ld[j - 1], li[j - 1]); --j) {
+                ld[j] = ld[j - 1];
+                li[j] = li[j - 1];
+              }
+              ld[j] = v;
+              li[j] = col;
+              td = ld[K - 1];
+              ti = li[K - 1];
+            }
+          }
+        }
+      }
     }
     first = false;
 
-    // merge the lists of each row: the four lanes that differ in t4, then
-    // the two warps that share the rows (through the free ring)
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        float od[K];
-        int oi[K];
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          od[j] = __shfl_xor_sync(0xffffffffu, bd[q][j], off);
-          oi[j] = __shfl_xor_sync(0xffffffffu, bi[q][j], off);
-        }
-#pragma unroll
-        for (int j = 0; j < K; ++j)
-          if (od[j] < CUDART_INF_F) topk_insert<K>(bd[q], bi[q], od[j], oi[j]);
-      }
-    }
-    __syncthreads();                          // every warp is done with the ring
-    float* md = Bs;                           // [BM][K] lists of the column-half-1 warps
-    int* mi = reinterpret_cast<int*>(Bs + BM * K);
-    if (wc != 0 && t4 == 0) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int rl = wr + (q >> 1) * 16 + g + 8 * (q & 1);
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          md[rl * K + j] = bd[q][j];
-          mi[rl * K + j] = bi[q][j];
+    if constexpr (WIDE) {
+      // each owner writes the first ko slots of its row's list
+      const int r = row0 + tid;
+      if (tid < BM && r < C) {
+        const bool rok = ids_s[r] >= 0;
+        const size_t o = ((size_t)leaf * C + r) * KO;
+        for (int j = 0; j < KO; ++j) {
+          const float dj = wd[tid * (K + 1) + j];
+          const bool ok = rok && dj < CUDART_INF_F;
+          out_idx[o + j] = ok ? wi[tid * (K + 1) + j] : -1;
+          out_dist[o + j] = ok ? dj : CUDART_INF_F;
         }
       }
-    }
-    __syncthreads();
-    if (wc == 0 && t4 == 0) {
+    } else {
+      // merge the lists of each row: the four lanes that differ in t4, then
+      // the two warps that share the rows (through the free ring)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int mt = q >> 1, h = q & 1;
-        const int rl = wr + mt * 16 + g + 8 * h;
-        const int r = row0 + rl;
-        if (r >= C) continue;
+      for (int off = 1; off <= 2; off <<= 1) {
 #pragma unroll
-        for (int j = 0; j < K; ++j)
-          if (md[rl * K + j] < CUDART_INF_F)
-            topk_insert<K>(bd[q], bi[q], md[rl * K + j], mi[rl * K + j]);
-        const size_t o = ((size_t)leaf * C + r) * K;
+        for (int q = 0; q < 4; ++q) {
+          float od[KR];
+          int oi[KR];
 #pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const bool ok = rv[mt][h] && bd[q][j] < CUDART_INF_F;
-          out_idx[o + j] = ok ? bi[q][j] : -1;
-          out_dist[o + j] = ok ? bd[q][j] : CUDART_INF_F;
+          for (int j = 0; j < KR; ++j) {
+            od[j] = __shfl_xor_sync(0xffffffffu, bd[q][j], off);
+            oi[j] = __shfl_xor_sync(0xffffffffu, bi[q][j], off);
+          }
+#pragma unroll
+          for (int j = 0; j < KR; ++j)
+            if (od[j] < CUDART_INF_F) topk_insert<KR>(bd[q], bi[q], od[j], oi[j]);
+        }
+      }
+      __syncthreads();                          // every warp is done with the ring
+      float* md = Bs;                           // [BM][KR] lists of the column-half-1 warps
+      int* mi = reinterpret_cast<int*>(Bs + BM * KR);
+      if (wc != 0 && t4 == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int rl = wr + (q >> 1) * 16 + g + 8 * (q & 1);
+#pragma unroll
+          for (int j = 0; j < KR; ++j) {
+            md[rl * KR + j] = bd[q][j];
+            mi[rl * KR + j] = bi[q][j];
+          }
+        }
+      }
+      __syncthreads();
+      if (wc == 0 && t4 == 0) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int mt = q >> 1, h = q & 1;
+          const int rl = wr + mt * 16 + g + 8 * h;
+          const int r = row0 + rl;
+          if (r >= C) continue;
+#pragma unroll
+          for (int j = 0; j < KR; ++j)
+            if (md[rl * KR + j] < CUDART_INF_F)
+              topk_insert<KR>(bd[q], bi[q], md[rl * KR + j], mi[rl * KR + j]);
+          const size_t o = ((size_t)leaf * C + r) * KR;
+#pragma unroll
+          for (int j = 0; j < KR; ++j) {
+            const bool ok = rv[mt][h] && bd[q][j] < CUDART_INF_F;
+            out_idx[o + j] = ok ? bi[q][j] : -1;
+            out_dist[o + j] = ok ? bd[q][j] : CUDART_INF_F;
+          }
         }
       }
     }
@@ -524,7 +609,7 @@ leaf_topk_kernel(const float* __restrict__ pts, const int* __restrict__ leaf_ids
 
 template <int K, int VEC>
 cudaError_t launch_vec(const float* pts, const int* leaf_ids, int n_leaves, int C, int d, int da,
-                       int metric, int* out_idx, float* out_dist, cudaStream_t stream) {
+                       int metric, int ko, int* out_idx, float* out_dist, cudaStream_t stream) {
   auto kernel = leaf_topk_kernel<K, VEC>;
   // allow the most shared memory once per device, at the kernel's first
   // launch there
@@ -537,21 +622,24 @@ cudaError_t launch_vec(const float* pts, const int* leaf_ids, int n_leaves, int 
     if (err != cudaSuccess) return err;
     if (dev < 64) allowed[dev] = true;
   }
-  kernel<<<(unsigned)((long long)n_leaves * GROUPS), THREADS, smem_bytes(C, da), stream>>>(
-      pts, leaf_ids, C, d, da, metric, out_idx, out_dist);
+  kernel<<<(unsigned)((long long)n_leaves * GROUPS), THREADS, smem_bytes(C, da, K), stream>>>(
+      pts, leaf_ids, C, d, da, metric, ko, out_idx, out_dist);
   return cudaGetLastError();
 }
 
+// k slots a row from the top-K lists (k == K up to MAX_REG_K)
 template <int K>
 cudaError_t launch(const float* pts, const int* leaf_ids, int n_leaves, int C, int d, int metric,
-                   int* out_idx, float* out_dist, cudaStream_t stream) {
+                   int k, int* out_idx, float* out_dist, cudaStream_t stream) {
   if (n_leaves <= 0 || C <= 0) return cudaGetLastError();
-  const int da = resident_depth(C, d);
+  const int da = resident_depth(C, d, K);
   if (da == 0) return cudaErrorInvalidValue;   // C too large for the ids and norms
   // 16-byte copies need 16-byte aligned rows
   if (d % 4 == 0 && reinterpret_cast<uintptr_t>(pts) % 16 == 0)
-    return launch_vec<K, 4>(pts, leaf_ids, n_leaves, C, d, da, metric, out_idx, out_dist, stream);
-  return launch_vec<K, 1>(pts, leaf_ids, n_leaves, C, d, da, metric, out_idx, out_dist, stream);
+    return launch_vec<K, 4>(pts, leaf_ids, n_leaves, C, d, da, metric, k, out_idx, out_dist,
+                            stream);
+  return launch_vec<K, 1>(pts, leaf_ids, n_leaves, C, d, da, metric, k, out_idx, out_dist,
+                          stream);
 }
 
 }  // namespace
@@ -568,14 +656,18 @@ PIPNN_EXPORT int pipnn_leaf_topk(const void* pts, const void* leaf_ids, int n, i
   float* od = static_cast<float*>(out_dist);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return launch<1>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 2: return launch<2>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 3: return launch<3>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 4: return launch<4>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 5: return launch<5>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 6: return launch<6>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 7: return launch<7>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    case 8: return launch<8>(p, ids, n_leaves, C, d, metric, oi, od, s);
-    default: return cudaErrorInvalidValue;
+    case 1: return launch<1>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 2: return launch<2>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 3: return launch<3>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 4: return launch<4>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 5: return launch<5>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 6: return launch<6>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 7: return launch<7>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    case 8: return launch<8>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+    default:
+      // k = 9..32 run the next wide list length and write its first k slots
+      if (k >= 9 && k <= 16) return launch<16>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+      if (k >= 17 && k <= 32) return launch<32>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+      return cudaErrorInvalidValue;
   }
 }

@@ -18,9 +18,15 @@ output's bytes, where D is small).
 
 ``pairwise_distance_int8`` replaces ``::pairwise_distance_int8``
 (``_dist_kernel_int8``, ``pallas_call`` at ``:123``): exact squared L2 on
-int8 inputs, ``|a|^2 + |b|^2 - 2 a.b`` in int32, summed with ``__dp4a``.
-Bound: bytes, the int32 output written once.  As in the reference, no
-build path reaches it; its launches are counted apart (``launches_int8``).
+int8 inputs, ``|a|^2 + |b|^2 - 2 a.b`` in wrapping int32 arithmetic, any
+D (D = 0 writes zeros).  The products run on the int8 tensor cores
+(``mma.sync`` m16n8k32, exact in int32); persistent blocks walk 256x128
+output tiles with both panels in a 2-stage ``cp.async`` ring, the norms
+are ``__dp4a`` sums of the same slices, and the epilogue writes 16-byte
+streaming stores, a row's 32 columns by 8 lanes, while the ring loads the
+next tile.  Bound: bytes, the int32 output written once.  As in the
+reference, no build path reaches it; its launches are counted apart
+(``launches_int8``).
 """
 from __future__ import annotations
 

@@ -3,14 +3,19 @@
 Replaces the Pallas kernel ``repro/kernels/edge_hash.py::edge_hashes``
 (``pallas_call`` at ``:58``) together with the gather in
 ``repro/core/sketch.py::edge_hashes_from_ids`` that feeds it.  The CUDA
-kernel (``csrc/edge_hash.cu``) runs one thread per edge: it reads the two
-sketch rows of ``max(src, 0)`` and ``max(dst, 0)`` and packs bit i of
-``Sketch(dst) - Sketch(src) >= 0`` with weight 2^i.
+kernel (``csrc/edge_hash.cu``) reads the two sketch rows of ``max(src, 0)``
+and ``max(dst, 0)`` of each edge and packs bit i of
+``Sketch(dst) - Sketch(src) >= 0`` with weight 2^i.  A thread takes four
+edges (16-byte id loads and hash stores where the arrays are 16-byte
+aligned), loads their sketch rows in program order before the compares
+(16-byte row loads where m % 4 == 0), and reads no global memory for a
+negative id: the block keeps row 0 in shared memory.  128-thread blocks
+at 64 registers, 8 an SM: occupancy keeps the loads in flight.
 
 Bound on the card: bytes.  Per edge 8 bytes of ids in and 4 bytes of hash
 out; the [n, m] sketch matrix is read through L2.  The kernel does one
 rounded subtraction per bit, exactly as the plain version, so it is
-bit-exact.
+bit-exact (also where row 0 is not finite).
 """
 from __future__ import annotations
 

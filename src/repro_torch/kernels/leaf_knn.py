@@ -21,7 +21,11 @@ column tile, when d is too deep to fit: past 736 at c_max = 1024), column
 tiles stream in through a ``cp.async`` ring, norms are summed once per row,
 and only the tiles that hold valid points are computed.  The [C, C] matrix
 is never written; each 64x64 tile is folded into per-row running top-k
-lists.
+lists: in registers for k <= 8 (one instantiation per k), in shared memory
+for 9 <= k <= ``MAX_K`` (lists of 16 or 32, of which the first k slots are
+written; the first k of the top-16 or top-32 under the (dist, position)
+order are the top-k).  A larger k raises ``ValueError`` on the card; the
+plain version takes any k.
 """
 from __future__ import annotations
 
@@ -32,7 +36,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.topk import topf
 
 METRIC_CODES = {"l2": 0, "mips": 1, "cosine": 2}
-MAX_K = 8
+MAX_K = 32   # the card kernel's largest k (the plain version takes any)
 
 launches = 0   # kernel launches since the last reset
 

@@ -167,26 +167,29 @@ def test_final_prune_matches_jax_on_the_same_reservoir(metric):
 BENCH_N, BENCH_D = 4096, 32     # the BENCH_build.json shape
 
 
-def _bench_params(port: bool):
+def _bench_params(port: bool, k: int = 2):
     rbc, leaf, pp = ((RBCParams, LeafParams, pipnn.PiPNNParams) if port
                      else (JRBCParams, JLeafParams, jpipnn.PiPNNParams))
-    return pp(rbc=rbc(c_max=256, c_min=32, fanout=(4, 2)), leaf=leaf(k=2),
+    return pp(rbc=rbc(c_max=256, c_min=32, fanout=(4, 2)), leaf=leaf(k=k),
               hash_bits=12, l_max=64, max_deg=32, seed=0)
 
 
-def test_streaming_build_equals_reference_given_leaves_and_hyperplanes(monkeypatch):
+@pytest.mark.parametrize("k", (2, 12))
+def test_streaming_build_equals_reference_given_leaves_and_hyperplanes(monkeypatch, k):
     """Integer-valued 4096 x 32 data, the reference's own leaves and the
     same dyadic hyperplanes: the graphs, their dists and the entry point
-    are identical."""
+    are identical, at the paper's leaf k and at a k past 8 (the card
+    kernel's wide lists)."""
     cfg = VectorPipelineConfig(n=BENCH_N, dim=BENCH_D, n_clusters=32, seed=0)
     x = sift_like(make_vectors(cfg))
     hp = dyadic_hyperplanes(7, 12, BENCH_D)
     monkeypatch.setattr(jsketch, "make_hyperplanes",
                         lambda key, m, d, dtype=jnp.float32: jnp.asarray(hp))
-    jp = _bench_params(port=False)
+    jp = _bench_params(port=False, k=k)
     leaves = j_ball_carve(x, jp.rbc, execution="host")
     want = jpipnn.build(x, jp, leaves=leaves, streaming=True)
-    got = pipnn.build(x, _bench_params(port=True), leaves=leaves, hyperplanes=hp, device=CPU)
+    got = pipnn.build(x, _bench_params(port=True, k=k), leaves=leaves, hyperplanes=hp,
+                      device=CPU)
     np.testing.assert_array_equal(got.graph.numpy(), want.graph)
     np.testing.assert_array_equal(got.dists.numpy(), want.dists)
     assert got.start == want.start
@@ -208,3 +211,20 @@ def test_recall_within_001_of_reference_on_own_rng():
     r_port = j_recall_at_k(pipnn.search(got, x, q, k=10, beam=64, device=CPU), truth, 10)
     assert got.stats["partition_uncovered"] == 0
     assert abs(r_port - r_ref) <= 0.01, (r_port, r_ref)
+
+
+@pytest.mark.parametrize("k", (0, -1))
+def test_leaf_k_below_one_is_refused(monkeypatch, k):
+    """k < 1 raises ``ValueError`` from ``build`` (before Stage 1: the
+    partition is never called) and from ``leaf_knn``, on the CPU."""
+    from repro_torch.core import leaf
+
+    x = np.random.default_rng(3).standard_normal((200, 8)).astype(np.float32)
+    called = []
+    monkeypatch.setattr(pipnn, "partition_padded", lambda *a, **kw: called.append(1))
+    with pytest.raises(ValueError, match="at least 1"):
+        pipnn.build(x, pipnn.PiPNNParams(leaf=LeafParams(k=k)), device=CPU)
+    assert not called
+    ids = torch.arange(64, dtype=torch.int32).reshape(2, 32)
+    with pytest.raises(ValueError, match="at least 1"):
+        leaf.leaf_knn(torch.from_numpy(x), ids, k=k)

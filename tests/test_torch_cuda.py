@@ -40,7 +40,7 @@ def _leaves(rng, n, n_leaves, c):
     return ids
 
 
-@pytest.mark.parametrize("k", (1, 2, 8))
+@pytest.mark.parametrize("k", (1, 2, 8, 9, 16, 17, 32))
 @pytest.mark.parametrize("d", (128, 40))
 def test_leaf_topk_kernel_matches_plain(cuda, k, d):
     rng = np.random.default_rng(8)
@@ -70,11 +70,12 @@ def _edge_leaves(rng, n, c=1024):
 
 
 @pytest.mark.parametrize("metric", ("l2", "mips", "cosine"))
-@pytest.mark.parametrize("k", (1, 2, 8))
+@pytest.mark.parametrize("k", (1, 2, 8, 32))
 @pytest.mark.parametrize("d", (128, 40, 100, 37))
 def test_leaf_topk_kernel_tile_edges(cuda, d, k, metric):
     """Exact against the plain version on integer data at every tile edge;
-    d = 37 takes the 4-byte copies (rows not 16-byte aligned)."""
+    d = 37 takes the 4-byte copies (rows not 16-byte aligned); k = 32 the
+    wide lists in shared memory, with leaves shorter than k."""
     rng = np.random.default_rng(18)
     x = torch.from_numpy(_int_points(rng, 3000, d)).to(cuda)
     x[200:210] = x[199]                     # duplicate points: tied distances
@@ -86,23 +87,42 @@ def test_leaf_topk_kernel_tile_edges(cuda, d, k, metric):
     assert bool((got[0][len(LEAF_SIZES)] == -1).all())
 
 
-def test_leaf_topk_kernel_gaussian_within_tolerance(cuda):
+@pytest.mark.parametrize("k", (2, 16))
+def test_leaf_topk_kernel_gaussian_within_tolerance(cuda, k):
     """Gaussian-mixture data, held to phase 1's tolerance:
-    |err| <= 1e-5 |d| + 32 eps max|x|^2, the same finite pattern."""
+    |err| <= 1e-5 |d| + 32 eps max|x|^2, the same finite pattern, at the
+    default k and at a k of the wide lists."""
     from repro_torch.data import VectorPipelineConfig, make_vectors
 
     x = torch.from_numpy(make_vectors(VectorPipelineConfig(n=20_000, dim=128,
                                                            n_clusters=256))).to(cuda)
     rng = np.random.default_rng(19)
     ids = torch.from_numpy(_edge_leaves(rng, 20_000)).to(cuda)
-    gi, gd = leaf_knn.leaf_topk(x, ids, 2)
-    hi, hd = leaf_knn.leaf_topk_plain(x, ids, 2)
+    gi, gd = leaf_knn.leaf_topk(x, ids, k)
+    hi, hd = leaf_knn.leaf_topk_plain(x, ids, k)
     fin = torch.isfinite(hd)
     assert torch.equal(torch.isfinite(gd), fin)
     max_sq = float((x * x).sum(dim=1).max())
     err = (gd[fin] - hd[fin]).abs()
     assert bool((err <= 1e-5 * hd[fin].abs() + 32 * 2.0 ** -23 * max_sq).all()), float(err.max())
     assert float((gi == hi).float().mean()) > 0.99
+
+
+@pytest.mark.parametrize("k", (0, -1))
+def test_build_refuses_leaf_k_below_one_on_the_card(cuda, k):
+    import repro_torch
+    from repro_torch.core.leaf import LeafParams
+
+    x = np.random.default_rng(4).standard_normal((500, 16)).astype(np.float32)
+    with pytest.raises(ValueError, match="at least 1"):
+        repro_torch.build(x, repro_torch.PiPNNParams(leaf=LeafParams(k=k)))
+
+
+def test_leaf_topk_kernel_refuses_k_above_32(cuda):
+    x = torch.zeros((100, 16), device=cuda)
+    ids = torch.arange(64, device=cuda, dtype=torch.int32).reshape(2, 32)
+    with pytest.raises(ValueError, match="k <= 32"):
+        leaf_knn.leaf_topk(x, ids, 33)
 
 
 @pytest.mark.parametrize("metric", ("l2", "cosine"))
@@ -127,6 +147,72 @@ def test_edge_hashes_kernel_matches_plain(cuda):
     dst = torch.from_numpy(rng.integers(-1, 1000, 100_000).astype(np.int32)).to(cuda)
     assert torch.equal(edge_hash.edge_hashes(sk, src, dst),
                        edge_hash.edge_hashes_plain(sk, src, dst))
+
+
+def _check_hashes(sk, src, dst):
+    got = edge_hash.edge_hashes(sk, src, dst)
+    want = edge_hash.edge_hashes_plain(sk, src, dst)
+    assert torch.equal(got, want), (sk.shape, src.numel())
+
+
+def _offset(t):
+    """A copy of ``t`` one element past a 16-byte boundary (contiguous)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return flat.view(t.shape).copy_(t)
+
+
+@pytest.mark.parametrize("m", (1, 4, 12, 13, 16))
+@pytest.mark.parametrize("e", (0, 1, 3, 4, 5, 100_003))
+def test_edge_hashes_kernel_widths_and_lengths(cuda, m, e):
+    """Every hash width (m % 4 == 0 takes the 16-byte rows) and edge counts
+    around the four-edge groups; then offset views of the ids and of the
+    sketches, so that every 16-byte path falls back.  Bit-exact."""
+    rng = np.random.default_rng(30 + m)
+    sk = torch.from_numpy(rng.standard_normal((2000, m)).astype(np.float32)).to(cuda)
+    src = torch.from_numpy(rng.integers(-1, 2000, e).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(rng.integers(-1, 2000, e).astype(np.int32)).to(cuda)
+    _check_hashes(sk, src, dst)
+    _check_hashes(sk, _offset(src), _offset(dst))
+    _check_hashes(_offset(sk), src, dst)
+    _check_hashes(_offset(sk), _offset(src), dst)
+
+
+@pytest.mark.parametrize("m", (12, 13))
+def test_edge_hashes_kernel_padding_and_nonfinite_row0(cuda, m):
+    """All-padding ids (every edge hashes row 0 against itself), and a row 0
+    of +inf or NaN with -1 ids mixed in: the kernel's copy of row 0 keeps
+    it bit for bit.  Bit-exact."""
+    rng = np.random.default_rng(31)
+    e = 10_007
+    sk = torch.from_numpy(rng.standard_normal((500, m)).astype(np.float32)).to(cuda)
+    pad = torch.full((e,), -1, dtype=torch.int32, device=cuda)
+    _check_hashes(sk, pad, pad)
+    src = torch.from_numpy(rng.integers(-1, 500, e).astype(np.int32)).to(cuda)
+    dst = torch.from_numpy(rng.integers(-1, 500, e).astype(np.int32)).to(cuda)
+    src[::3] = -1
+    dst[1::5] = -1
+    for bad in (float("inf"), float("-inf"), float("nan")):
+        sk0 = sk.clone()
+        sk0[0, ::2] = bad
+        sk0[7] = bad
+        _check_hashes(sk0, src, dst)
+        _check_hashes(sk0, pad, dst)
+
+
+def test_edge_hashes_kernel_on_leaf_chunk_edges(cuda):
+    """The edges ``emit_knn_edges`` makes from a real leaf chunk (leaf
+    top-k on the card, then the bidirected emission), on the sketches of
+    seeded hyperplanes.  Bit-exact."""
+    from repro_torch.core import sketch
+    from repro_torch.core.leaf import emit_knn_edges
+
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(_int_points(rng, 5000, 128)).to(cuda)
+    ids = torch.from_numpy(_leaves(rng, 5000, 40, 1024)).to(cuda)
+    ki, kd = leaf_knn.leaf_topk(x, ids, 2)
+    src, dst, _ = emit_knn_edges(ids, ki, kd)
+    hp = torch.from_numpy(sketch.make_hyperplanes(0, 12, 128)).to(cuda)
+    _check_hashes(sketch.sketch(x, hp).contiguous(), src, dst)
 
 
 @pytest.mark.parametrize("metric", ("l2", "mips"))
@@ -375,6 +461,51 @@ def test_pairwise_distance_int8_kernel_exact(cuda, b, m, n, d):
     av = flat[1:].view(1, m, d)
     assert torch.equal(distance.pairwise_distance_int8(av, bb[:1]),
                        distance.pairwise_distance_int8_plain(av, bb[:1]))
+
+
+INT8_SIZES = (1, 127, 128, 129, 1000)
+
+
+def _int8(g, shape, cuda):
+    return torch.randint(-128, 128, shape, device=cuda, generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m", INT8_SIZES)
+@pytest.mark.parametrize("n", INT8_SIZES)
+@pytest.mark.parametrize("d", (16, 37))
+def test_pairwise_distance_int8_kernel_tile_edges(cuda, m, n, d):
+    """M and N on and off the 128x128 tiles (N = 127, 129, 1 take the
+    scalar stores), D through the 16-byte (16) and byte (37) copies.
+    Exact."""
+    g = torch.Generator(device=cuda).manual_seed(40 + m + n + d)
+    a, bb = _int8(g, (1, m, d), cuda), _int8(g, (1, n, d), cuda)
+    assert torch.equal(distance.pairwise_distance_int8(a, bb),
+                       distance.pairwise_distance_int8_plain(a, bb))
+
+
+@pytest.mark.parametrize("d", (0, 1, 16, 37, 128, 960))
+def test_pairwise_distance_int8_kernel_depths(cuda, d):
+    """Every depth class (D = 0 writes zeros; 1 and 37 the byte copies; 16,
+    128 and 960, eight ring stages, the 16-byte copies), B = 2, then a
+    view one byte past a 16-byte boundary (4-byte copies where D % 4 == 0,
+    else bytes) and rows full of -128 and of 127.  Exact."""
+    g = torch.Generator(device=cuda).manual_seed(50 + d)
+    a, bb = _int8(g, (2, 300, d), cuda), _int8(g, (2, 129, d), cuda)
+    want = distance.pairwise_distance_int8_plain(a, bb)
+    assert torch.equal(distance.pairwise_distance_int8(a, bb), want)
+    if d == 0:
+        assert bool((want == 0).all())
+    av = torch.empty(a.numel() + 1, dtype=torch.int8, device=cuda)[1:].view(a.shape)
+    av.copy_(a)
+    assert torch.equal(distance.pairwise_distance_int8(av, bb), want)
+    ext = a.clone()
+    ext[:, ::2] = -128
+    ext[:, 1::4] = 127
+    be = bb.clone()
+    be[:, ::3] = 127
+    be[:, 1::3] = -128
+    assert torch.equal(distance.pairwise_distance_int8(ext, be),
+                       distance.pairwise_distance_int8_plain(ext, be))
 
 
 TOPK_K = (1, 2, 10, 16, 17, 32)

@@ -39,7 +39,7 @@ def _leaves(rng, n, n_leaves, c):
 
 # ------------------------------------------------------------ leaf top-k ---
 
-@pytest.mark.parametrize("k", (1, 2, 4))
+@pytest.mark.parametrize("k", (1, 2, 4, 12, 32))
 def test_leaf_topk_plain_matches_jax_exact_on_integers(k):
     rng = np.random.default_rng(0)
     x = _int_points(rng, 300, 16, hi=4)        # tiny range: many exact ties
