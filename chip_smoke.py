@@ -37,7 +37,10 @@ Phases (any failure exits non-zero before the last line is printed):
    with dyadic hyperplanes (multiples of 1/16, drawn on the host from the
    seed) so is every sketch.  Only then do leaves, leaf top-k, reservoirs,
    prune and gather distances agree bit for bit across devices.  int8 and
-   bfloat16 search give the same ids on both devices too.  The same points
+   bfloat16 search give the same ids on both devices too.  The static
+   Stage-1 carve (``RBCParams(execution="static")``, through the distance
+   and top-k kernels on the card) gives the identical leaf matrix and
+   static build on both devices.  The same points
    before the integer mapping (the Gaussian mixture) are built and searched
    on the card, and their float32 / int8 / bfloat16 recall reported.
 3. full size: build and search through the public entry points; phase
@@ -69,6 +72,18 @@ Phases (any failure exits non-zero before the last line is printed):
    integer data and, like the leaf top-k, held on the Gaussian mixture (its
    points against the same leaders) to 1e-5 |d| + 32 eps max|x|^2: on the
    integer data the low TF32 parts are 0, so only this check sees them.
+   The top-k also at the static carve's level-0 k (12).
+6. the static Stage-1 carve at full size: the partition alone, static and
+   the default worklist in turns; the static carve step by step (its
+   counts: capacity drops, salvage leaves); the distance and top-k kernels
+   on its first level-1 block (34 buckets of 15,008 points against their
+   80 leaders, masked) against their plain versions, with times, library
+   times and bounds; then the static build and its float32 searches
+   through the public entry points, the launch counters set to 0 before
+   each path (the distance and top-k kernels must run on the build, as
+   the build's three do).  Graph invariants, recall@10 at beam 128 at
+   least the floor and at least the worklist build's - 0.03.  The
+   ``kernels`` line takes the distance and top-k launches from this build.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -510,6 +525,7 @@ def phase_parity(n: int, n_queries: int, seed: int, dev) -> None:
                                query_chunk=250)
         check(np.array_equal(a, b), f"{dtype} search differs between card and CPU")
         quant[str(dtype)] = recall_at_k(a, truth)
+    static = phase_parity_static(x, hp, seed, dev)
     xg, qg = make_vectors(cfg), make_queries(cfg, n_queries)
     gidx = repro_torch.build(xg, device=dev)
     truth_g = brute_force_knn(torch.from_numpy(xg).to(dev), torch.from_numpy(qg).to(dev), 10)
@@ -521,10 +537,66 @@ def phase_parity(n: int, n_queries: int, seed: int, dev) -> None:
                                   quantized_recall_at_10_beam64=quant,
                                   gaussian_recall_at_10_beam64=gaussian,
                                   build_s_card=t_gpu, build_s_cpu=t_cpu,
-                                  stats=gpu.stats)))
+                                  stats=gpu.stats, static=static)))
 
 
-def _searches(index, x, q, truth, dev, dtype=None) -> dict:
+def check_index(index) -> None:
+    """The graph invariants of a build: every point in some leaf, ids in
+    range, no self loops, degree at most 64."""
+    import torch
+
+    g = index.graph
+    n = g.shape[0]
+    check(index.stats["partition_uncovered"] == 0, "points left out of every leaf")
+    check(bool(((g >= -1) & (g < n)).all()), "graph ids out of range")
+    rows = torch.arange(n, device=g.device)[:, None]
+    check(not bool((g == rows).any()), "graph has self loops")
+    check(g.shape[1] <= 64, "degree above 64")
+
+
+def phase_parity_static(x, hp, seed: int, dev) -> dict:
+    """Phase 2's static carve: its leaf matrix (through the distance and
+    top-k kernels on the card) and the static build's graph, card against
+    CPU, must be identical on the integer data."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch.core.rbc import RBCParams, partition_padded
+
+    rp = RBCParams(execution="static", seed=seed)
+    out = {}
+    mats = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        xt = torch.from_numpy(x).to(d)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mats[name] = partition_padded(xt, rp)
+        out[f"partition_s_{name}"] = time.perf_counter() - t0
+    check(np.array_equal(mats["card"], mats["cpu"]), "static leaf matrices differ between "
+          f"card and CPU ({mats['card'].shape} vs {mats['cpu'].shape})")
+    params = repro_torch.PiPNNParams(rbc=rp, seed=seed)
+    t0 = time.perf_counter()
+    gpu = repro_torch.build(x, params, hyperplanes=hp, device=dev)
+    out["build_s_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = repro_torch.build(x, params, hyperplanes=hp, device="cpu")
+    out["build_s_cpu"] = time.perf_counter() - t0
+    check(gpu.stats["partition_execution"] == cpu.stats["partition_execution"] == "static",
+          "the static build did not carve statically")
+    check(gpu.start == cpu.start, f"static start differs: {gpu.start} vs {cpu.start}")
+    same = torch.equal(gpu.graph.cpu(), cpu.graph)
+    check(same, f"static graphs differ in {int((gpu.graph.cpu() != cpu.graph).sum())} slots")
+    check(torch.equal(gpu.dists.cpu(), cpu.dists), "static graph dists differ")
+    out.update(leaf_matrix_identical=True, graph_identical=same,
+               leaf_matrix_shape=list(mats["card"].shape),
+               stats={k: gpu.stats[k] for k in ("n_leaves", "point_repeat", "pad_ratio",
+                                                 "partition_uncovered")})
+    return out
+
+
+def _searches(index, x, q, truth, dev, dtype=None, tag: str = "phase3") -> dict:
     """The full query set at every beam through ``repro_torch.search``."""
     import torch
 
@@ -542,7 +614,7 @@ def _searches(index, x, q, truth, dev, dtype=None) -> dict:
                               seconds=dt, mean_hops=float(tel["hops"].mean()),
                               mean_dist_comps=float(tel["dist_comps"].mean()),
                               converged=float(tel["converged"].mean()))
-        log("phase3 search", "float32" if dtype is None else str(dtype), beam,
+        log(f"{tag} search", "float32" if dtype is None else str(dtype), beam,
             json.dumps(per_beam[beam]))
     return per_beam
 
@@ -582,13 +654,8 @@ def phase_full(x, q, seed: int, dev) -> dict:
     build_peak = torch.cuda.max_memory_allocated()
     launches = {"build": _path_launches("build", ("leaf_knn", "edge_hash",
                                                   "segmented_merge"))}
-    g = index.graph
     st = index.stats
-    check(st["partition_uncovered"] == 0, "points left out of every leaf")
-    check(bool(((g >= -1) & (g < n)).all()), "graph ids out of range")
-    rows = torch.arange(n, device=g.device)[:, None]
-    check(not bool((g == rows).any()), "graph has self loops")
-    check(g.shape[1] <= 64, "degree above 64")
+    check_index(index)
     log("phase3 build", json.dumps(dict(
         n=n, wall_s=wall, timings=index.timings, peak_device_bytes=build_peak,
         avg_degree=index.average_degree(),
@@ -631,7 +698,7 @@ def phase_full(x, q, seed: int, dev) -> dict:
     check(np.array_equal(a, cpu8.search(q[:500], k=10, beam=32)),
           "int8 search differs between card and CPU at full size")
     return dict(launches=launches, peak=torch.cuda.max_memory_allocated(), truth=truth,
-                servings=servings)
+                servings=servings, searches=searches, timings=index.timings)
 
 
 def gaussian_pairwise(dist, xg, pos, metric: str) -> dict:
@@ -683,6 +750,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
 
     from repro_torch import kernels
     from repro_torch.core.leader_assign import leader_assign
+    from repro_torch.core.rbc import RBCParams, carve_chunks
     from repro_torch.kernels import distance, topk
     from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
 
@@ -754,6 +822,17 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
         library="torch.topk(largest=False)",
         library_ms=cuda_ms(lambda: torch.topk(dk, f, largest=False), 10),
         **bound(0.0, 4.0 * n * n_leaders + 8.0 * n * f))
+    # the static carve's level 0 selects f0r = fanout(0) + bucket_spill of
+    # the same leaders
+    k0 = carve_chunks(n, RBCParams(seed=seed))["f0r"]
+    got, want = topk.rowwise_topk(dk, k0), topk.rowwise_topk_plain(dk, k0)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), f"rowwise_topk != plain at k = {k0}")
+    del got, want
+    out["rowwise_topk"]["level0"] = dict(
+        k=k0, ms=cuda_ms(lambda: topk.rowwise_topk(dk, k0), 10),
+        plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, k0), 2),
+        library_ms=cuda_ms(lambda: torch.topk(dk, k0, largest=False), 10),
+        **bound(0.0, 4.0 * n * n_leaders + 8.0 * n * k0))
     log("phase5 rowwise_topk", json.dumps(out["rowwise_topk"]))
     del dk
     torch.cuda.empty_cache()
@@ -780,6 +859,182 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
                 PEAK_INT8_OPS))
     log("phase5 pairwise_distance_int8", json.dumps(out["pairwise_distance_int8"]))
     return out
+
+
+def static_steps(xt, p) -> tuple:
+    """``rbc.ball_carve_device``'s steps one by one on the points ``xt``,
+    the card synchronised after each: (the padded leaf matrix, seconds per
+    step, counts, the level-1 inputs)."""
+    import torch
+
+    from repro_torch.core import rbc
+    from repro_torch.core.leader_assign import leader_assign
+
+    n = xt.shape[0]
+    sh = rbc.carve_chunks(n, p)
+    secs = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lead0 = torch.from_numpy(rbc.static_leaders(n, p)).to(xt.device)
+    t0 = lap("leaders", t0)
+    bpid, bval = rbc.static_level0(xt, lead0, sh, p.metric)
+    t0 = lap("level0", t0)
+    lead1, lead1_ok = rbc.static_level1_leaders(bpid, bval, sh)
+    a1 = rbc.static_level1(xt, bpid, bval, lead1, lead1_ok, sh, p.metric)
+    t0 = lap("level1", t0)
+    leaf_ids = rbc.static_leaf_routing(a1, bpid, sh, p.c_max)
+    t0 = lap("leaf_routing", t0)
+    kept = leaf_ids[(leaf_ids >= 0).any(dim=1)]
+    t0 = lap("filter", t0)
+    padded = rbc.salvage(kept, n, p.c_max)
+    secs["copy_and_salvage"] = time.perf_counter() - t0
+    secs["total"] = sum(secs.values())
+    leaders = xt[lead0.long()]
+    blk = rbc._BLOCK_ROWS
+    # level 0's assignment alone (its routing is the rest of "level0")
+    secs["level0_assign"] = 1e-3 * cuda_ms(lambda: [
+        leader_assign(xt[s:s + blk], leaders, sh["f0r"], metric=p.metric, use_kernels=True)
+        for s in range(0, n, blk)], 3)
+    counts = dict(
+        shapes=sh, block_rows=blk,
+        level1_buckets_a_block=rbc.static_level1_block_buckets(sh),
+        level0_placements=n * sh["f0r"], level0_kept=int(bval.sum()),
+        full_buckets=int(bval.all(dim=1).sum()), level1_placements=int((a1 >= 0).sum()),
+        leaf_kept=int((leaf_ids >= 0).sum()), full_leaves=int((leaf_ids >= 0).all(dim=1).sum()),
+        nonempty_leaves=int(kept.shape[0]), salvage_leaves=int(padded.shape[0] - kept.shape[0]),
+        salvaged_points=int((padded[kept.shape[0]:] >= 0).sum()))
+    return padded, secs, counts, (bpid, bval, lead1, lead1_ok, sh)
+
+
+def level1_kernels(x, gauss, level1) -> dict:
+    """The distance and top-k kernels on the first level-1 block of the
+    static carve (its buckets' points against their 80 leaders, masked as
+    ``leader_assign`` masks them), each against its plain version, with
+    kernel, plain and library times and bounds."""
+    import torch
+
+    from repro_torch.core import rbc
+    from repro_torch.kernels import distance, topk
+
+    bpid, bval, lead1, lead1_ok, sh = level1
+    nb, f1 = rbc.static_level1_block_buckets(sh), sh["f1"]
+    ids, pok, lids, lok = bpid[:nb], bval[:nb], lead1[:nb], lead1_ok[:nb]
+    pts, lds = x[ids.clamp_min(0).long()], x[lids.clamp_min(0).long()]
+    b, m, d = pts.shape
+    nl = lds.shape[1]
+    dk = distance.pairwise_distance(pts, lds)
+    check(torch.equal(dk, distance.pairwise_distance_plain(pts, lds)),
+          "pairwise_distance != plain at the level-1 shape")
+    xg = torch.from_numpy(gauss).to(x.device)
+    pg, lg = xg[ids.clamp_min(0).long()], xg[lids.clamp_min(0).long()]
+    want = distance.pairwise_distance_plain(pg, lg)
+    err = (distance.pairwise_distance(pg, lg) - want).abs()
+    max_sq = float((xg * xg).sum(dim=1).max())
+    check(bool((err <= 1e-5 * want.abs() + 32 * EPS32 * max_sq).all()),
+          f"pairwise_distance Gaussian dists beyond tolerance at the level-1 shape "
+          f"(max {float(err.max())})")
+    del xg, pg, lg, want
+    flops = 2.0 * b * m * nl * d
+    tc = bound(3.0 * flops, 4.0 * (b * m * d + b * nl * d + b * m * nl), PEAK_TF32_FLOPS)
+    out = {"pairwise_distance": dict(
+        shape=[b, m, nl, d], max_abs_err=float(err.max()),
+        ms=cuda_ms(lambda: distance.pairwise_distance(pts, lds), 20),
+        plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(pts, lds), 3),
+        library="torch.cdist", library_ms=cuda_ms(lambda: torch.cdist(pts, lds), 5),
+        bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=3.0 * flops,
+        bytes=tc["bytes"])}
+    inf = torch.full((), float("inf"), device=x.device)
+    dm = torch.where(pok[:, :, None], torch.where(lok[:, None, :], dk, inf), inf).contiguous()
+    got, want = topk.rowwise_topk(dm, f1), topk.rowwise_topk_plain(dm, f1)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "rowwise_topk != plain at the level-1 shape")
+    out["rowwise_topk"] = dict(
+        shape=[b, m, nl], k=f1, max_abs_err=0.0, empty_slots=float((got[0] < 0).float().mean()),
+        ms=cuda_ms(lambda: topk.rowwise_topk(dm, f1), 20),
+        plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dm, f1), 3),
+        library="torch.topk(largest=False)",
+        library_ms=cuda_ms(lambda: torch.topk(dm, f1, largest=False), 20),
+        **bound(0.0, 4.0 * b * m * nl + 8.0 * b * m * f1))
+    return out
+
+
+def phase_static(x_np, q_np, gauss, seed: int, dev, worklist: dict) -> dict:
+    """Phase 6: Stage 1's static carve at full size.  The partition alone,
+    static and worklist (``"device"``) in turns; the static carve step by
+    step; the distance and top-k kernels at its level-1 shape; then the
+    static build and its float32 searches through the public entry points,
+    the launch counters set to 0 before each path.  ``worklist`` is phase
+    3's result (the default build's recall)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import rbc
+
+    n = x_np.shape[0]
+    xt = torch.from_numpy(x_np).to(dev)
+    p = rbc.RBCParams(seed=seed)
+    part = {"static": [], "device": []}
+    for mode in ("static", "device", "static", "device", "static"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mat = rbc.partition_padded(xt, dataclasses.replace(p, execution=mode))
+        part[mode].append(time.perf_counter() - t0)
+        if mode == "static":
+            static_mat = mat
+        del mat
+    log("phase6 partition_s", json.dumps(part))
+    padded, secs, counts, level1 = static_steps(xt, p)
+    check(np.array_equal(padded, static_mat), "the static steps differ from ball_carve_device")
+    log("phase6 static steps", json.dumps(dict(seconds=secs, **counts)))
+    kstats = level1_kernels(xt, gauss, level1)
+    for name, v in kstats.items():
+        log(f"phase6 {name} level1", json.dumps(v))
+    del xt, padded, static_mat, level1
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = repro_torch.build(x_np, repro_torch.PiPNNParams(
+        seed=seed, rbc=rbc.RBCParams(execution="static")), device=dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"static build": _path_launches("static build", (
+        "pairwise_distance", "rowwise_topk", "leaf_knn", "edge_hash", "segmented_merge"))}
+    st = index.stats
+    check(st["partition_execution"] == "static", "the static build did not carve statically")
+    check_index(index)
+    log("phase6 build", json.dumps(dict(
+        n=n, wall_s=wall, timings=index.timings, peak_device_bytes=peak,
+        avg_degree=index.average_degree(), salvage_leaves=counts["salvage_leaves"],
+        stats={k: st[k] for k in ("partition_execution", "n_leaves", "point_repeat",
+                                   "pad_ratio", "n_candidate_edges", "stream_chunk_leaves",
+                                   "leaf_size_mean", "partition_uncovered")})))
+    kernels.reset_launch_counts()
+    repro_torch.search(index, x_np, q_np[:100], k=10, beam=32, device=dev)
+    searches = _searches(index, x_np, q_np, worklist["truth"], dev, tag="phase6")
+    launches["static float32 search"] = _path_launches("static float32 search",
+                                                       ("gather_distance",))
+    r = searches[128]["recall_at_10"]
+    rw = worklist["searches"]["float32"][128]["recall_at_10"]
+    check(r >= RECALL_FLOOR, f"static recall@10 at beam 128 {r} below {RECALL_FLOOR}")
+    check(r >= rw - 0.03, f"static recall@10 at beam 128 {r} below the worklist's {rw} - 0.03")
+    log("phase6 recall rule", json.dumps(dict(
+        static=r, worklist=rw, gap=rw - r, slack=0.03,
+        partition_s_worklist_build=worklist["timings"]["partition"],
+        partition_s_static_build=index.timings["partition"])))
+    return dict(launches=launches, level1=kstats)
 
 
 def main() -> int:
@@ -846,6 +1101,14 @@ def main() -> int:
     t0 = time.perf_counter()
     kstats.update(phase_leader(x_np, gauss, args.seed))
     log("phase5 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    static = phase_static(x_np, q_np, gauss, args.seed, torch.device("cuda"), full)
+    full["launches"].update(static["launches"])
+    for name, s in static["level1"].items():
+        kstats[name]["level1"] = s
+    log("phase6 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -862,10 +1125,12 @@ def main() -> int:
         "gather_distance_int8": ("gather_distance_int8.cu",
                                  "src/repro/kernels/gather_distance.py:275 and :499",
                                  "gather_distance_int8", "int8"),
-        "pairwise_distance": ("distance.cu", "src/repro/kernels/distance.py:91", None, None),
+        "pairwise_distance": ("distance.cu", "src/repro/kernels/distance.py:91",
+                              "pairwise_distance", "static build"),
         "pairwise_distance_int8": ("distance.cu", "src/repro/kernels/distance.py:123", None,
                                    None),
-        "rowwise_topk": ("topk.cu", "src/repro/kernels/topk.py:70", None, None)}
+        "rowwise_topk": ("topk.cu", "src/repro/kernels/topk.py:70", "rowwise_topk",
+                         "static build")}
     rows = []
     for name, (cu, replaces, counter, path) in sources.items():
         s = kstats[name]
@@ -878,6 +1143,12 @@ def main() -> int:
                    tolerance=s["tolerance"])
         if name in ("leaf_topk", "pairwise_distance"):
             row.update(bound_f32_cuda_core_ms=s["bound_f32_cuda_core_ms"])
+        if name in ("pairwise_distance", "rowwise_topk"):
+            # the times above are Stage 1's root subproblem (phase 5); the
+            # static carve's level-1 block (and for the top-k its level-0
+            # k) beside them
+            row.update({k: s[k] for k in ("level1", "level0") if k in s},
+                       root_subproblem_launches=s["launches"])
         if name == "leaf_topk":
             row.update({k: v for k, v in s.items() if k.startswith("k16_")})
         if name == "pairwise_distance_int8":

@@ -9,8 +9,9 @@ index).  The GEMM stays ``torch.matmul``: the reference leaves it to XLA.
 ``use_kernels=True`` is the counterpart of the reference's
 ``use_pallas=True``: the matrix comes from the ``pairwise_distance`` kernel
 and the selection from the ``rowwise_topk`` kernel, whose ids are -1 where
-a row has fewer than ``f`` finite entries.  As in the reference, no build
-passes it (``rbc.py`` keeps the ``topf`` route).
+a row has fewer than ``f`` finite entries.  The static Stage-1 carve
+(``rbc.ball_carve_device``) takes it at both levels; the worklist carve
+keeps the ``topf`` route.
 """
 from __future__ import annotations
 

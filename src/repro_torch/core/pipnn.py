@@ -3,8 +3,11 @@ prune, with the streaming Stage 2+3 of ``repro/core/pipnn.py``.
 
 ``build(x)`` runs on the card by default:
 
-  * Stage 1, ``rbc.partition_padded``: the RBC carve, with the leader GEMM
-    and the bucket grouping on the device and the worklist on the host.
+  * Stage 1, ``rbc.partition_padded``: the RBC carve (``PiPNNParams.
+    partitioner``, ``RBCParams.execution``): on the card by default the
+    worklist carve, with the leader GEMM and the bucket grouping on the
+    device and the worklist on the host; ``execution="static"`` carves
+    two levels on the device with no host recursion.
   * Stages 2+3 fused, chunk by chunk of leaves: the leaf k-NN
     (``kernels.leaf_knn``), bidirected edge emission, residual hashes from
     the precomputed sketches (``kernels.edge_hash``) and the segmented fold
@@ -37,7 +40,7 @@ from repro_torch.core.hashprune import (INVALID_ID, Reservoir, merge_segmented_e
 from repro_torch.core.leaf import (LeafParams, check_k, emit_knn_edges, iter_leaf_id_chunks,
                                    leaf_knn)
 from repro_torch.core.rbc import (RBCParams, leaves_to_padded, padded_coverage,
-                                  partition_padded)
+                                  partition_padded, resolve_execution)
 from repro_torch.core.robust_prune import final_prune
 from repro_torch.device import resolve_device, synchronize
 
@@ -54,6 +57,7 @@ _LEAF_CHUNK = 8
 class PiPNNParams:
     rbc: RBCParams = dataclasses.field(default_factory=RBCParams)
     leaf: LeafParams = dataclasses.field(default_factory=LeafParams)
+    partitioner: str = "rbc"   # "rbc" | "binary" | "kmeans" | "sorting_lsh"
     hash_bits: int = 12        # m hyperplanes (paper default 12)
     l_max: int = 64            # reservoir capacity (paper: 64..192)
     alpha: float = 1.2         # on TRUE distance; squared for l2 internally
@@ -184,9 +188,12 @@ def build(x, params: PiPNNParams | None = None, *, leaves: list[np.ndarray] | No
     t0 = time.perf_counter()
     if leaves is None:
         rbc = dataclasses.replace(params.rbc, metric=params.metric, seed=params.seed)
-        padded = partition_padded(xt, rbc)
+        padded = partition_padded(xt, rbc, params.partitioner)
+        stats["partition_execution"] = (
+            resolve_execution(rbc, dev) if params.partitioner == "rbc" else "host")
     else:
         padded = leaves_to_padded(leaves, params.rbc.c_max)
+        stats["partition_execution"] = "caller"
     synchronize(dev)
     timings["partition"] = time.perf_counter() - t0
     sizes = (padded >= 0).sum(axis=1)

@@ -646,3 +646,81 @@ def test_main_path_launches_every_kernel(cuda):
         assert counts[used] > 0 and sum(counts.values()) == counts[used], (dtype, counts)
     cpu = repro_torch.build(x, device="cpu")
     assert torch.equal(index.graph.cpu(), cpu.graph) and index.start == cpu.start
+
+
+@pytest.mark.parametrize("m", (1504, 4001))
+def test_pairwise_distance_kernel_level1_shapes(cuda, m):
+    """The static carve's level-1 shape, [B, M, 80] x [B, 80, 128]: exact
+    on integer data, Gaussian within 1e-5 |d| + 1e-4 (|a|^2 + |b|^2)."""
+    rng = np.random.default_rng(26)
+    a, bb = (t.to(cuda) for t in _int_panels(rng, 5, m, 80, 128))
+    _check_pairwise(a, bb, "l2")
+    _check_pairwise(a, bb, "mips")
+    a, bb = a.normal_(), bb.normal_()
+    got = distance.pairwise_distance(a, bb)
+    want = distance.pairwise_distance_plain(a, bb)
+    scale = (a * a).sum(-1)[:, :, None] + (bb * bb).sum(-1)[:, None, :]
+    assert bool(((got - want).abs() <= 1e-5 * want.abs() + 1e-4 * scale).all())
+
+
+@pytest.mark.parametrize("n,k", [(80, 3), (1000, 12)])
+def test_rowwise_topk_kernel_static_carve_shapes(cuda, n, k):
+    """The static carve's selections, k = 3 of N = 80 (level 1) and k = 12
+    of N = 1000 (level 0), with +inf-masked columns (invalid leaders),
+    all-inf rows (invalid points) and rows with fewer than k finite
+    entries.  Exact, -1 ids included."""
+    rng = np.random.default_rng(27)
+    d = rng.integers(0, 50, (3, 2000, n)).astype(np.float32)
+    d[:, :, rng.random(n) < 0.2] = np.inf          # invalid leaders, each batch
+    d[1, :, k - 1:] = np.inf                       # fewer than k valid leaders
+    d[:, 1500:] = np.inf                           # padded points
+    ids, _ = _check_topk(torch.from_numpy(d).to(cuda), k)
+    assert bool((ids[:, 1500:] == -1).all()) and bool((ids[1, :, k - 1:] == -1).all())
+
+
+def test_leader_assign_kernel_route_masks_level1(cuda):
+    """Level 1 through the kernels: -1 exactly where the ``topf`` route
+    picks an invalid leader or serves an invalid point, its ids elsewhere."""
+    from repro_torch.core.leader_assign import leader_assign
+
+    rng = np.random.default_rng(28)
+    pts = torch.from_numpy(_int_points(rng, 6 * 1504, 128).reshape(6, 1504, 128)).to(cuda)
+    lead = torch.from_numpy(_int_points(rng, 6 * 80, 128).reshape(6, 80, 128)).to(cuda)
+    pv = torch.from_numpy(rng.random((6, 1504)) < 0.9).to(cuda)
+    lv = torch.from_numpy(rng.random((6, 80)) < 0.8).to(cuda)
+    lv[2] = False
+    lv[2, 5:7] = True                              # two valid leaders, f = 3
+    got = leader_assign(pts, lead, 3, point_valid=pv, leader_valid=lv, use_kernels=True)
+    ref = leader_assign(pts, lead, 3, point_valid=pv, leader_valid=lv)
+    ok = pv[..., None] & torch.gather(lv, 1, ref.long().reshape(6, -1)).reshape(ref.shape)
+    assert torch.equal(got, torch.where(ok, ref, -1))
+    assert bool((got[2, :, 2] == -1).all())
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips"))
+def test_static_carve_on_the_card_equals_cpu(cuda, monkeypatch, metric):
+    """The static carve on integer data: the card's matrix (through the
+    distance and top-k kernels) is the CPU's, bit for bit, at two block
+    sizes; with l2 the static build's graph is the CPU's too."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import rbc
+    from repro_torch.data import VectorPipelineConfig, make_vectors, sift_like
+
+    x = sift_like(make_vectors(VectorPipelineConfig(n=30_000, dim=128, n_clusters=64)))
+    p = rbc.RBCParams(metric=metric, execution="static")
+    want = rbc.ball_carve_device(torch.from_numpy(x), p)
+    kernels.reset_launch_counts()
+    got = rbc.ball_carve_device(torch.from_numpy(x).to(cuda), p)
+    counts = kernels.launch_counts()
+    assert counts["pairwise_distance"] > 0 and counts["rowwise_topk"] > 0, counts
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(rbc, "_BLOCK_ROWS", 5000)
+    np.testing.assert_array_equal(rbc.ball_carve_device(torch.from_numpy(x).to(cuda), p), want)
+    if metric != "l2":
+        return
+    params = repro_torch.PiPNNParams(rbc=p, metric=metric)
+    card = repro_torch.build(x, params)
+    cpu = repro_torch.build(x, params, device="cpu")
+    assert card.stats["partition_execution"] == cpu.stats["partition_execution"] == "static"
+    assert torch.equal(card.graph.cpu(), cpu.graph) and card.start == cpu.start
