@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of PiPNN (``src/repro_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed S] [--n N] [--n-small N] [--queries Q]
+    python3 chip_smoke.py [--seed S] [--n N] [--n-small N] [--queries Q] [--n-cpu N]
 
 With no arguments it runs the SIFT1M / BIGANN-1M deployment: n = 1,000,000
 points, d = 128, float32, squared L2, 10,000 queries, k = 10, built with
@@ -84,6 +84,31 @@ Phases (any failure exits non-zero before the last line is printed):
    the build's three do).  Graph invariants, recall@10 at beam 128 at
    least the floor and at least the worklist build's - 0.03.  The
    ``kernels`` line takes the distance and top-k launches from this build.
+7. the other build and search options.  (a) The flat build
+   (``streaming=False``) at full size on phase 3's own leaves (its leaf
+   matrix, recorded on its way through, given as ``leaves=``) and seeded
+   hyperplanes: its graph, dists and entry point identical to phase 3's;
+   wall time by phase and peak device memory beside the streaming
+   build's; the leaf and hash kernels launched on it, the merge kernel
+   not.  (b) The flat fold (``merge="flat"``) on the same leaves: the
+   identical graph, no merge launch.  (c) ``final_prune=False``: the graph
+   equals the same stream's reservoir cut to ``max_deg``, its rows sorted
+   by (dist, id) with -1 / +inf padding and holding every id of phase 3's
+   pruned rows; its degree, recall@10 and QPS at beams 32, 64 and 128
+   beside phase 3's.  (d) Every leaf method (``LeafParams.method``) at
+   ``--n-small`` with the reference's ablation settings
+   (``benchmarks/bench_leaf_methods.py``: c_max 256, c_min 32, fanout
+   (4, 2), k 2, max_deg 32) on one carve's leaves and dyadic hyperplanes:
+   recall@10 at beam 64, degree, ``build_leaves`` seconds and launches;
+   ``robust_prune`` streamed equals flat; then each method on the card and
+   on the CPU at ``--n-cpu`` points (16,384: its own data; the CPU's
+   all-to-all ``robust_prune`` takes minutes at 65,536), identical
+   graphs.  (e) The host search (``search(batch=False)``, no kernel) on
+   200 of the queries at beam 64 beside the serving path on the same
+   queries, and the legacy ``beam_search_single`` on the card for every
+   query at each beam (``iters = beam + 4``) beside phase 3's serving
+   engine.  The launch counters are set to 0 before each path and read
+   after it.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -314,11 +339,11 @@ def merge_inputs(x, inputs: dict) -> dict:
     from repro_torch.core.leaf import iter_leaf_id_chunks
 
     params, padded, chunk, sk = (inputs[k] for k in ("params", "padded", "chunk", "sketches"))
-    n, k, l_max = x.shape[0], params.leaf.k, params.l_max
+    n, l_max = x.shape[0], params.l_max
     chunks = list(iter_leaf_id_chunks(torch.from_numpy(padded).to(x.device), chunk))
 
     def edges(leaf_ids):
-        return pipnn._chunk_edges(x, sk, leaf_ids, k=k, metric=params.metric)[0]
+        return pipnn._chunk_edges(x, sk, leaf_ids, leaf=params.leaf)[0]
 
     def reservoir(leaf_ids):
         return hashprune_flat(*edges(leaf_ids), n_points=n, l_max=l_max)
@@ -640,17 +665,25 @@ def phase_full(x, q, seed: int, dev) -> dict:
 
     import repro_torch
     from repro_torch import kernels
+    from repro_torch.core import pipnn
     from repro_torch.core.beam_search import brute_force_knn
     from repro_torch.core.pipnn import serving_index
     from repro_torch.core.serving import ServingIndex
 
     n = x.shape[0]
+    # Stage 1's leaf matrix, recorded on its way through for phase 7
+    padded = []
+    real_partition = pipnn.partition_padded
+    pipnn.partition_padded = lambda *a, **kw: padded.append(real_partition(*a, **kw)) or padded[0]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    index = repro_torch.build(x, repro_torch.PiPNNParams(seed=seed), device=dev)
-    wall = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        index = repro_torch.build(x, repro_torch.PiPNNParams(seed=seed), device=dev)
+        wall = time.perf_counter() - t0
+    finally:
+        pipnn.partition_padded = real_partition
     build_peak = torch.cuda.max_memory_allocated()
     launches = {"build": _path_launches("build", ("leaf_knn", "edge_hash",
                                                   "segmented_merge"))}
@@ -697,8 +730,9 @@ def phase_full(x, q, seed: int, dev) -> dict:
     a = sv8.search(q[:500], k=10, beam=32)
     check(np.array_equal(a, cpu8.search(q[:500], k=10, beam=32)),
           "int8 search differs between card and CPU at full size")
-    return dict(launches=launches, peak=torch.cuda.max_memory_allocated(), truth=truth,
-                servings=servings, searches=searches, timings=index.timings)
+    return dict(launches=launches, peak=build_peak, truth=truth, servings=servings,
+                searches=searches, timings=index.timings, index=index, padded=padded[0],
+                wall=wall)
 
 
 def gaussian_pairwise(dist, xg, pos, metric: str) -> dict:
@@ -1037,12 +1071,298 @@ def phase_static(x_np, q_np, gauss, seed: int, dev, worklist: dict) -> dict:
     return dict(launches=launches, level1=kstats)
 
 
+def _timed_build(x_np, params, dev, name: str, needed: tuple[str, ...], absent=(), **kw):
+    """One build through ``repro_torch.build`` with the launch counters and
+    the peak-memory counter set just before it: (index, wall seconds, peak
+    device bytes, device bytes held before it, launches).  Each kernel in
+    ``needed`` must have run on it, none in ``absent``."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    index = repro_torch.build(x_np, params, device=dev, **kw)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _path_launches(name, needed)
+    for k in absent:
+        check(launches[k] == 0, f"kernel {k} ran on the {name} path")
+    return index, wall, peak, base, launches
+
+
+def _same_graph(a, b, what: str) -> None:
+    import torch
+
+    check(a.start == b.start, f"{what}: start differs ({a.start} vs {b.start})")
+    diff = int((a.graph.cpu() != b.graph.cpu()).sum())
+    check(diff == 0, f"{what}: graphs differ in {diff} slots")
+    check(torch.equal(a.dists.cpu(), b.dists.cpu()), f"{what}: graph dists differ")
+
+
+def _rows_sorted(graph, dists) -> bool:
+    """Every row sorted by (dist, id), -1 exactly where the dist is +inf
+    and only after the live slots."""
+    import torch
+
+    live = graph >= 0
+    ok = torch.equal(live, torch.isfinite(dists))
+    ok &= bool((live[:, :-1] | ~live[:, 1:]).all())
+    d0, d1, i0, i1 = dists[:, :-1], dists[:, 1:], graph[:, :-1], graph[:, 1:]
+    order = (d0 < d1) | ((d0 == d1) & (i0 < i1)) | ~live[:, 1:]
+    return ok and bool(order.all())
+
+
+def _subset_rows(small, big, rows: int = 100_000) -> bool:
+    """Every live id of each row of ``small`` is in the same row of ``big``."""
+    import torch
+
+    for s in range(0, small.shape[0], rows):
+        a, b = small[s:s + rows], big[s:s + rows]
+        hit = (a[:, :, None] == b[:, None, :]).any(dim=2) | (a < 0)
+        if not bool(hit.all()):
+            return False
+        del hit
+    return True
+
+
+def phase_options_full(x_np, q_np, seed: int, dev, full: dict) -> dict:
+    """Phase 7 (a)-(c) at full size, each on phase 3's own leaves (its
+    recorded leaf matrix, given as ``leaves=``) and its seeded hyperplanes:
+    the flat build (``streaming=False``), the flat fold (``merge="flat"``)
+    and ``final_prune=False``."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import pipnn, sketch
+
+    ref = full["index"]
+    padded = full["padded"]
+    leaves = [row[row >= 0] for row in padded]
+    base = repro_torch.PiPNNParams(seed=seed)
+    out = {}
+
+    flat, wall, peak, held, launches = _timed_build(
+        x_np, base, dev, "flat build", ("leaf_knn", "edge_hash"), ("segmented_merge",),
+        leaves=leaves, streaming=False)
+    check(not flat.stats["streaming"], "the flat build streamed")
+    _same_graph(flat, ref, "flat build vs phase 3")
+    out["flat_build"] = dict(
+        wall_s=wall, timings=flat.timings, peak_device_bytes=peak, held_before_bytes=held,
+        streaming_build_peak_device_bytes=full["peak"], streaming_build_wall_s=full["wall"],
+        streaming_build_timings=full["timings"], launches=launches, graph_identical=True,
+        stats={k: flat.stats[k] for k in ("n_candidate_edges", "peak_edge_bytes",
+                                          "edge_bytes_build_leaves", "merge_workspace_bytes",
+                                          "n_leaves", "streaming")})
+    log("phase7 flat build", json.dumps(out["flat_build"]))
+    del flat
+    torch.cuda.empty_cache()
+
+    fold, wall, peak, held, launches = _timed_build(
+        x_np, base.with_(merge="flat"), dev, "flat fold", ("leaf_knn", "edge_hash"),
+        ("segmented_merge",), leaves=leaves)
+    _same_graph(fold, ref, "flat fold vs phase 3")
+    out["flat_fold"] = dict(wall_s=wall, timings=fold.timings, peak_device_bytes=peak,
+                            held_before_bytes=held, launches=launches, graph_identical=True,
+                            merge_workspace_bytes=fold.stats["merge_workspace_bytes"])
+    log("phase7 flat fold", json.dumps(out["flat_fold"]))
+    del fold
+    torch.cuda.empty_cache()
+
+    keep, wall, peak, held, launches = _timed_build(
+        x_np, base.with_(final_prune=False), dev, "final_prune=False",
+        ("leaf_knn", "edge_hash", "segmented_merge"), leaves=leaves)
+    # the reservoir of the same stream, on its own
+    xt = torch.from_numpy(x_np).to(dev)
+    hp = torch.from_numpy(sketch.make_hyperplanes(seed, base.hash_bits, x_np.shape[1])).to(dev)
+    res, _, _ = pipnn._build_reservoir_streaming(xt, padded, sketch.sketch(xt, hp).contiguous(),
+                                                 base)
+    del xt
+    check(torch.equal(keep.graph, res.ids[:, :base.max_deg])
+          and torch.equal(keep.dists, res.dists[:, :base.max_deg]),
+          "final_prune=False graph != the reservoir cut to max_deg")
+    del res
+    check(_rows_sorted(keep.graph, keep.dists), "final_prune=False rows not sorted by (dist, id)")
+    check(_subset_rows(ref.graph.to(dev), keep.graph),
+          "a pruned row holds an id its reservoir lacks")
+    kernels.reset_launch_counts()
+    repro_torch.search(keep, x_np, q_np[:100], k=10, beam=32, device=dev)
+    searches = _searches(keep, x_np, q_np, full["truth"], dev, tag="phase7 final_prune=False")
+    slaunch = _path_launches("final_prune=False float32 search", ("gather_distance",))
+    pruned = full["searches"]["float32"]
+    out["final_prune_off"] = dict(
+        wall_s=wall, timings=keep.timings, peak_device_bytes=peak, launches=launches,
+        search_launches=slaunch, avg_degree=keep.average_degree(),
+        pruned_avg_degree=ref.average_degree(), equals_reservoir=True,
+        recall_at_10={b: searches[b]["recall_at_10"] for b in BEAMS},
+        qps={b: searches[b]["qps"] for b in BEAMS},
+        pruned_recall_at_10={b: pruned[b]["recall_at_10"] for b in BEAMS},
+        pruned_qps={b: pruned[b]["qps"] for b in BEAMS})
+    log("phase7 final_prune=False", json.dumps(out["final_prune_off"]))
+    del keep
+    torch.cuda.empty_cache()
+    return out
+
+
+LEAF_METHODS = ("bidirected", "directed", "inverted", "mst", "robust_prune")
+
+
+def _method_params(method: str, seed: int):
+    """The reference's leaf-method ablation settings
+    (``benchmarks/bench_leaf_methods.py``)."""
+    import repro_torch
+    from repro_torch.core.leaf import LeafParams
+    from repro_torch.core.rbc import RBCParams
+
+    return repro_torch.PiPNNParams(rbc=RBCParams(c_max=256, c_min=32, fanout=(4, 2)),
+                                   leaf=LeafParams(method=method, k=2, max_deg=32),
+                                   max_deg=32, seed=seed)
+
+
+def _method_needs(method: str, streamed: bool) -> tuple[tuple, tuple]:
+    needed = ("edge_hash",) + (("leaf_knn",) if method not in ("mst", "robust_prune") else ())
+    needed += ("segmented_merge",) if streamed else ()
+    absent = (() if streamed else ("segmented_merge",)) + (
+        ("leaf_knn",) if method in ("mst", "robust_prune") else ())
+    return needed, absent
+
+
+def phase_leaf_methods(n: int, n_cpu: int, n_queries: int, seed: int, dev) -> dict:
+    """Phase 7 (d): every leaf method on SIFT-like integers at ``n``, on the
+    card, with the reference's ablation settings, the leaves of one worklist
+    carve and dyadic hyperplanes: recall@10 at beam 64, degree,
+    ``build_leaves`` seconds, launches; ``robust_prune`` streamed equals
+    flat.  Then every method on the card and on the CPU at ``n_cpu`` (its
+    own data, leaves and hyperplanes shared), identical graphs."""
+    import dataclasses
+
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import brute_force_knn, recall_at_k
+    from repro_torch.core.rbc import partition
+    from repro_torch.data import (VectorPipelineConfig, dyadic_hyperplanes, make_queries,
+                                  make_vectors, sift_like)
+
+    def data(size):
+        cfg = VectorPipelineConfig(n=size, dim=128, n_clusters=1024, seed=seed)
+        x = sift_like(make_vectors(cfg))
+        rbc = dataclasses.replace(_method_params("bidirected", seed).rbc, seed=seed)
+        return x, partition(torch.from_numpy(x).to(dev), rbc), cfg
+
+    hp = dyadic_hyperplanes(seed, 12, 128)
+    x, leaves, cfg = data(n)
+    q = sift_like(make_queries(cfg, n_queries))
+    truth = brute_force_knn(torch.from_numpy(x).to(dev), torch.from_numpy(q).to(dev), 10)
+    out = {"n": n, "n_cpu": n_cpu, "queries": n_queries, "methods": {}}
+    for m in LEAF_METHODS:
+        p = _method_params(m, seed)
+        needed, absent = _method_needs(m, m != "mst")
+        idx, wall, peak, _, launches = _timed_build(x, p, dev, f"leaf method {m}", needed,
+                                                    absent, leaves=leaves, hyperplanes=hp)
+        check(idx.stats["streaming"] == (m != "mst"), f"{m}: streaming flag")
+        ids = repro_torch.search(idx, x, q, k=10, beam=64, device=dev)
+        row = dict(recall_at_10_beam64=recall_at_k(ids, truth), avg_degree=idx.average_degree(),
+                   build_leaves_s=idx.timings["build_leaves"], wall_s=wall,
+                   peak_device_bytes=peak, n_candidate_edges=idx.stats["n_candidate_edges"],
+                   launches={k: launches[k] for k in ("leaf_knn", "edge_hash",
+                                                       "segmented_merge")})
+        if m == "robust_prune":
+            flat, fwall, _, _, flaunch = _timed_build(
+                x, p, dev, "leaf method robust_prune flat", *_method_needs(m, False),
+                leaves=leaves, hyperplanes=hp, streaming=False)
+            _same_graph(flat, idx, "robust_prune flat vs streamed")
+            row.update(flat_wall_s=fwall, flat_build_leaves_s=flat.timings["build_leaves"],
+                       flat_launches={k: flaunch[k] for k in ("leaf_knn", "edge_hash",
+                                                              "segmented_merge")},
+                       flat_equals_streamed=True)
+        out["methods"][m] = row
+        log("phase7 leaf method", m, json.dumps(row))
+        del idx
+
+    x, leaves, _ = data(n_cpu) if n_cpu != n else (x, leaves, None)
+    for m in LEAF_METHODS:
+        p = _method_params(m, seed)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = repro_torch.build(x, p, leaves=leaves, hyperplanes=hp, device=dev)
+        t_card = time.perf_counter() - t0
+        _path_launches(f"leaf method {m} at n = {n_cpu}", _method_needs(m, m != "mst")[0])
+        t0 = time.perf_counter()
+        cpu = repro_torch.build(x, p, leaves=leaves, hyperplanes=hp, device="cpu")
+        t_cpu = time.perf_counter() - t0
+        _same_graph(card, cpu, f"leaf method {m}: card vs CPU at n = {n_cpu}")
+        out["methods"][m].update(card_equals_cpu=True, parity_card_s=t_card, parity_cpu_s=t_cpu)
+        log("phase7 leaf method parity", m, json.dumps(dict(
+            n=n_cpu, card_s=t_card, cpu_s=t_cpu, graph_identical=True)))
+    return out
+
+
+def phase_host_search(full: dict, x_np, q_np, dev, n_host: int = 200) -> dict:
+    """Phase 7 (e): the host oracle ``search(batch=False)`` on ``n_host`` of
+    the queries at beam 64 beside the serving path on the same queries;
+    then the legacy ``beam_search_single`` on the card for every query at
+    each beam with ``iters = beam + 4``, beside the serving engine's
+    phase 3 numbers."""
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import beam_search_single, recall_at_k
+    from repro_torch.core.pipnn import serving_index
+
+    index, truth = full["index"], full["truth"]
+    qs = q_np[:n_host]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    host = repro_torch.search(index, x_np, qs, k=10, beam=64, batch=False)
+    t_host = time.perf_counter() - t0
+    check(not any(_path_launches("host search", ()).values()), "a kernel ran on the host search")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = repro_torch.search(index, x_np, qs, k=10, beam=64, device=dev)
+    t_batch = time.perf_counter() - t0
+    out = {"host": dict(queries=n_host, beam=64, recall_at_10=recall_at_k(host, truth[:n_host]),
+                        seconds=t_host,
+                        batch_recall_at_10=recall_at_k(served, truth[:n_host]),
+                        batch_seconds=t_batch)}
+    log("phase7 host search", json.dumps(out["host"]))
+    sv = serving_index(index, x_np, device=dev)
+    q = torch.from_numpy(q_np).to(dev)
+    engine = full["searches"]["float32"]
+    out["single"] = {}
+    for beam in BEAMS:
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, _ = beam_search_single(sv.graph, sv.points, q, start=sv.start, beam=beam,
+                                    iters=beam + 4, metric=sv.metric)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _path_launches(f"beam_search_single {beam}", ())   # torch operations, no kernel
+        out["single"][beam] = dict(
+            recall_at_10=recall_at_k(ids[:, :10].cpu().numpy(), truth), qps=q.shape[0] / dt,
+            seconds=dt, engine_recall_at_10=engine[beam]["recall_at_10"],
+            engine_qps=engine[beam]["qps"], engine_over_single_qps=engine[beam]["qps"] * dt
+            / q.shape[0])
+        log("phase7 beam_search_single", beam, json.dumps(out["single"][beam]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000)
     ap.add_argument("--n-small", type=int, default=65_536)
     ap.add_argument("--queries", type=int, default=10_000)
+    ap.add_argument("--n-cpu", type=int, default=16_384,
+                    help="points of phase 7's leaf-method builds on the card and the CPU")
     args = ap.parse_args()
 
     import torch
@@ -1096,6 +1416,12 @@ def main() -> int:
                                gauss_q, full["truth"]))
     log("phase4 s", round(time.perf_counter() - t0, 3))
     del full["servings"]
+    # phase 7 compares with phase 3's graph: kept on the host meanwhile, so
+    # the card holds what it held in phases 5 and 6 before phase 7 existed
+    idx = full["index"]
+    idx.graph, idx.dists = idx.graph.cpu(), idx.dists.cpu()
+    for attr in ("_serving", "_serving_x", "_serving_graph", "_serving_key"):
+        idx.__dict__.pop(attr, None)
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -1109,6 +1435,14 @@ def main() -> int:
     for name, s in static["level1"].items():
         kstats[name]["level1"] = s
     log("phase6 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    opts = phase_options_full(x_np, q_np, args.seed, torch.device("cuda"), full)
+    opts["leaf_methods"] = phase_leaf_methods(args.n_small, args.n_cpu, min(args.queries, 1000),
+                                              args.seed, torch.device("cuda"))
+    opts["search"] = phase_host_search(full, x_np, q_np, torch.device("cuda"))
+    log("phase7 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -1149,6 +1483,16 @@ def main() -> int:
             # k) beside them
             row.update({k: s[k] for k in ("level1", "level0") if k in s},
                        root_subproblem_launches=s["launches"])
+        if counter in ("leaf_knn", "edge_hash", "segmented_merge"):
+            # launches on phase 7's paths
+            row.update(
+                flat_build_launches=opts["flat_build"]["launches"][counter],
+                flat_fold_launches=opts["flat_fold"]["launches"][counter],
+                final_prune_off_launches=opts["final_prune_off"]["launches"][counter],
+                leaf_methods_launches={m: r["launches"][counter] for m, r in
+                                       opts["leaf_methods"]["methods"].items()},
+                robust_prune_flat_launches=opts["leaf_methods"]["methods"]["robust_prune"][
+                    "flat_launches"][counter])
         if name == "leaf_topk":
             row.update({k: v for k, v in s.items() if k.startswith("k16_")})
         if name == "pairwise_distance_int8":

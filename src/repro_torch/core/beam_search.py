@@ -1,6 +1,7 @@
 """Beam search over a navigation graph (counterpart of
-``repro/core/beam_search.py``): the numpy oracle ``beam_search_np`` and
-the multi-expansion serving engine.
+``repro/core/beam_search.py``): the numpy oracle ``beam_search_np``, the
+legacy single-expansion engine ``beam_search_single`` and the
+multi-expansion serving engine.
 
 Each engine step expands the E best unvisited beam entries of every query
 at once, scores their E*R neighbours as one [Q, E*R] block
@@ -22,7 +23,7 @@ import torch
 from repro_torch.core.metrics import check_metric, pairwise, point_norms
 from repro_torch.kernels.gather_distance import gather_distance
 from repro_torch.kernels.gather_distance_int8 import gather_distance_int8
-from repro_torch.kernels.topk import topf
+from repro_torch.kernels.topk import lex_key, ordered, stable_argsort, topf
 
 
 def default_iters(beam: int) -> int:
@@ -82,6 +83,60 @@ def beam_search_np(graph: np.ndarray, x: np.ndarray, q: np.ndarray, *,
     ids = np.asarray([v for v, _ in items], dtype=np.int64)
     ds = np.asarray([dv for _, dv in items], dtype=np.float32)
     return ids, ds, comps
+
+
+def beam_search_single(graph: torch.Tensor, x: torch.Tensor, queries: torch.Tensor, *,
+                       start: int, beam: int, iters: int, metric: str = "l2"):
+    """Single-expansion fixed-iteration beam search (the legacy engine, the
+    baseline the serving engine is measured against), batched over the
+    queries on their device with torch operations.
+
+    Each of ``iters`` steps expands the best unvisited beam slot of every
+    query, scores its R neighbours, and folds them in with two sorts of the
+    beam + R entries: by (id, dist, not visited) to drop repeated ids
+    (empty neighbour slots carry id -1, sort first and are masked), then by
+    (dist, id) to keep the best ``beam``.  No convergence check.  Returns
+    (ids int32, dists float32), [Q, beam] each."""
+    check_metric(metric)
+    nq = queries.shape[0]
+    r = graph.shape[1]
+    dev = queries.device
+    inf = torch.full((), float("inf"), device=dev)
+    q = queries.to(torch.float32)
+    rows = torch.arange(nq, device=dev)
+    ids = torch.full((nq, beam), -1, dtype=torch.int32, device=dev)
+    ids[:, 0] = int(start)
+    ds = torch.full((nq, beam), float("inf"), dtype=torch.float32, device=dev)
+    ds[:, 0] = pairwise(q[:, None, :], x[int(start)][None, None, :], metric)[:, 0, 0]
+    vis = torch.zeros((nq, beam), dtype=torch.bool, device=dev)
+    not_vis_new = torch.ones((nq, r), dtype=torch.int32, device=dev)
+    for _ in range(iters):
+        cand = torch.where(vis | (ids < 0), inf, ds)
+        j = torch.argmin(cand, dim=1)
+        done = ~torch.isfinite(cand[rows, j])
+        p = ids[rows, j].clamp_min(0).long()
+        vis[rows, j] = True
+        nbr = graph[p]                                          # [Q, R]
+        ok = (nbr >= 0) & ~done[:, None]
+        nv = x[nbr.clamp_min(0).long()]                         # [Q, R, d]
+        nd = torch.where(ok, pairwise(q[:, None, :], nv, metric)[:, 0], inf)
+        all_ids = torch.cat([ids, torch.where(ok, nbr, -1)], dim=1)
+        all_ds = torch.cat([ds, nd], dim=1)
+        all_nvis = torch.cat([(~vis).to(torch.int32), not_vis_new], dim=1)
+        # (id, dist, not visited): a repeated id keeps its first copy, the
+        # nearest, visited before unvisited
+        o = stable_argsort(lex_key(ordered(all_ds), all_nvis))
+        o = torch.gather(o, 1, stable_argsort(torch.gather(all_ids, 1, o)))
+        o_id, o_ds, o_nvis = (torch.gather(t, 1, o) for t in (all_ids, all_ds, all_nvis))
+        dup = torch.zeros_like(o_id, dtype=torch.bool)
+        dup[:, 1:] = o_id[:, 1:] == o_id[:, :-1]
+        o_ds = torch.where(dup | (o_id < 0), inf, o_ds)
+        # the best `beam` by (dist, id)
+        t = stable_argsort(lex_key(ordered(o_ds), o_id))[:, :beam]
+        ids, ds = torch.gather(o_id, 1, t), torch.gather(o_ds, 1, t)
+        vis = torch.gather(o_nvis, 1, t) == 0
+        ids = torch.where(torch.isfinite(ds), ids, -1)
+    return ids, ds
 
 
 def _lt(d1, i1, d2, i2):

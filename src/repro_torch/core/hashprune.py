@@ -8,13 +8,26 @@ by (dist, id).  Mergeability, R(R(C1) u C2) = R(C1 u C2), lets the build
 fold its candidate edges in chunks while holding only the [n, l_max]
 reservoir.
 
+Two folds of a candidate chunk into the persistent reservoir:
+``merge_segmented_edges`` (the build's default: the chunk alone is reduced
+by ``hashprune_flat``, then merged row by row by
+``kernels.segmented_merge``) and ``merge_flat_edges`` (the oracle: the
+reservoir is re-expressed as edges by ``reservoir_as_edges`` and re-sorted
+with the chunk).  ``hashprune_stream`` is the sequential Algorithm 3 for
+one point, the oracle of the closed form.
+
 The reference's multi-key ``lax.sort`` calls become chains of stable sorts
 from the least significant key up, on composite int64 keys
 (``kernels.topk.lex_key``); a stable sort keeps the reference's order for
-entries whose keys tie, so the reservoirs are bit-identical.
+entries whose keys tie, so the reservoirs are bit-identical.  The
+reference donates the reservoir to its jitted folds; here
+``merge_segmented_edges`` and ``hashprune_merge_segmented`` write into the
+reservoir's tensors in place on the card (the merge kernel) and return new
+ones on the CPU, and every other function leaves its inputs as they are.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -85,6 +98,18 @@ def hashprune_batch(cand_ids, cand_hashes, cand_dists, *, l_max: int) -> Reservo
     return Reservoir(ids=s_i, hashes=s_h, dists=s_d)
 
 
+def hashprune_merge(res: Reservoir, batch: Reservoir | None = None, cand_ids=None,
+                    cand_hashes=None, cand_dists=None) -> Reservoir:
+    """Merge a candidate batch ([n, m] padded lists, or a second reservoir
+    ``batch``) into ``res``: the closed form on the union, by the
+    mergeability lemma.  ``res`` is left as it is."""
+    if batch is not None:
+        cand_ids, cand_hashes, cand_dists = batch.ids, batch.hashes, batch.dists
+    return hashprune_batch(torch.cat([res.ids, cand_ids], dim=-1),
+                           torch.cat([res.hashes, cand_hashes], dim=-1),
+                           torch.cat([res.dists, cand_dists], dim=-1), l_max=res.l_max)
+
+
 def hashprune_flat(src, dst, hashes, dists, *, n_points: int, l_max: int) -> Reservoir:
     """HashPrune over a flat edge list [(src -> dst, hash, dist)].
 
@@ -126,6 +151,35 @@ def hashprune_flat(src, dst, hashes, dists, *, n_points: int, l_max: int) -> Res
     return out
 
 
+def reservoir_as_edges(ids, hashes, dists):
+    """Flatten a reservoir [n, l_max] into a flat edge list (src, dst, hash,
+    dist), empty slots as padding edges (src == n), so it can be re-pruned
+    together with a fresh chunk: the mergeability lemma's R(C1) u C2."""
+    n, l_max = ids.shape
+    row = torch.arange(n, dtype=torch.int32, device=ids.device)[:, None].expand(n, l_max)
+    flat_ids = ids.reshape(-1)
+    src = torch.where(flat_ids == INVALID_ID, n, row.reshape(-1))
+    return src, flat_ids, hashes.reshape(-1), dists.reshape(-1)
+
+
+def merge_flat_edges(res_ids, res_hashes, res_dists, src, dst, hashes, dists) -> Reservoir:
+    """Flat fold of a candidate-edge chunk into a reservoir: the reservoir
+    as edges and the chunk in one ``hashprune_flat``.  Bit-identical to
+    ``hashprune_flat`` over every edge ever folded in; the reservoir is
+    left as it is (the result is new)."""
+    n, l_max = res_ids.shape
+    r_src, r_dst, r_h, r_d = reservoir_as_edges(res_ids, res_hashes, res_dists)
+    return hashprune_flat(torch.cat([r_src, src]), torch.cat([r_dst, dst]),
+                          torch.cat([r_h, hashes]), torch.cat([r_d, dists]),
+                          n_points=n, l_max=l_max)
+
+
+def hashprune_merge_flat(res: Reservoir, src, dst, hashes, dists) -> Reservoir:
+    """``merge_flat_edges`` on a ``Reservoir``.  Padding edges use the
+    ``hashprune_flat`` convention (src == n, dst == -1, dist == +inf)."""
+    return merge_flat_edges(res.ids, res.hashes, res.dists, src, dst, hashes, dists)
+
+
 def merge_segmented_edges(res_ids, res_hashes, res_dists,
                           src, dst, hashes, dists) -> Reservoir:
     """Segmented fold of a flat candidate-edge chunk into a reservoir: the
@@ -137,3 +191,73 @@ def merge_segmented_edges(res_ids, res_hashes, res_dists,
     chunk = hashprune_flat(src, dst, hashes, dists, n_points=n, l_max=l_max)
     return Reservoir(*merge_sorted_reservoirs(
         res_ids, res_hashes, res_dists, chunk.ids, chunk.hashes, chunk.dists))
+
+
+def hashprune_merge_segmented(res: Reservoir, src, dst, hashes, dists) -> Reservoir:
+    """``merge_segmented_edges`` on a ``Reservoir``: same result as
+    ``hashprune_merge_flat``, with the global sort over the chunk's edges
+    only.  On the card ``res``'s tensors are written in place."""
+    return merge_segmented_edges(res.ids, res.hashes, res.dists, src, dst, hashes, dists)
+
+
+def _less(d1: float, i1: int, d2: float, i2: int) -> bool:
+    """(dist, id) lexicographic strict less-than."""
+    return d1 < d2 or (d1 == d2 and i1 < i2)
+
+
+def _first_max(vals: list) -> int:
+    best = 0
+    for i, v in enumerate(vals):
+        if v > vals[best]:
+            best = i
+    return best
+
+
+def _insert_one(ids: list, hashes: list, dists: list, cid: int, chash: int,
+                cdist: float) -> None:
+    """Algorithm 3's insertion of one candidate into a reservoir held as
+    lists, in place; the reference's ``_insert_one`` slot for slot."""
+    l_max = len(ids)
+    occupied = [i != INVALID_ID for i in ids]
+    if cid == INVALID_ID:
+        return
+    match = [o and h == chash for o, h in zip(occupied, hashes)]
+    any_match = any(match)
+    mpos = match.index(True) if any_match else 0
+    has_room = sum(occupied) < l_max
+    epos = occupied.index(False) if not all(occupied) else 0
+    # the farthest occupied slot by (dist, id): the max dist, ties to the
+    # larger id (the first of equal ids)
+    far = [d if o else float("-inf") for o, d in zip(occupied, dists)]
+    zpos = _first_max(far)
+    fz = far[zpos]
+    is_max = [o and d == fz and math.isfinite(fz) for o, d in zip(occupied, dists)]
+    if any(is_max):
+        zpos = _first_max([i if m else -2 for m, i in zip(is_max, ids)])
+    if any_match:
+        write, pos = _less(cdist, cid, dists[mpos], ids[mpos]), mpos
+    else:
+        write = has_room or _less(cdist, cid, dists[zpos], ids[zpos])
+        pos = epos if has_room else zpos
+    if write:
+        ids[pos], hashes[pos], dists[pos] = cid, chash, cdist
+
+
+def hashprune_stream(cand_ids, cand_hashes, cand_dists, *, l_max: int) -> Reservoir:
+    """Sequential Algorithm 3 for ONE point (candidates [n_cand]), on the
+    host: O(n_cand * l_max), the reference semantics.  Returns a [1, l_max]
+    reservoir on the candidates' device, slots in insertion order."""
+    ids, hashes, dists = [INVALID_ID] * l_max, [0] * l_max, [float("inf")] * l_max
+    for cid, ch, cd in zip(cand_ids.tolist(), cand_hashes.tolist(), cand_dists.tolist()):
+        _insert_one(ids, hashes, dists, cid, ch, cd)
+    dev = cand_ids.device
+    return Reservoir(ids=torch.tensor([ids], dtype=torch.int32, device=dev),
+                     hashes=torch.tensor([hashes], dtype=torch.int32, device=dev),
+                     dists=torch.tensor([dists], dtype=torch.float32, device=dev))
+
+
+def canonicalize(res: Reservoir) -> Reservoir:
+    """Sort reservoir slots by (dist, id) so representations compare equal."""
+    p = stable_argsort(lex_key(ordered(res.dists), res.ids))
+    d, i, h = (torch.gather(t, -1, p) for t in (res.dists, res.ids, res.hashes))
+    return Reservoir(ids=i, hashes=torch.where(i == INVALID_ID, 0, h), dists=d)

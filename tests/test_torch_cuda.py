@@ -724,3 +724,104 @@ def test_static_carve_on_the_card_equals_cpu(cuda, monkeypatch, metric):
     cpu = repro_torch.build(x, params, device="cpu")
     assert card.stats["partition_execution"] == cpu.stats["partition_execution"] == "static"
     assert torch.equal(card.graph.cpu(), cpu.graph) and card.start == cpu.start
+
+
+def _small_sift(n=8000, seed=0):
+    from repro_torch.data import VectorPipelineConfig, make_vectors, sift_like
+
+    return sift_like(make_vectors(VectorPipelineConfig(n=n, dim=128, n_clusters=64,
+                                                       seed=seed)))
+
+
+def _card_and_cpu(x, params, **kw):
+    """The same build on the card and on the CPU, with the CPU's leaves
+    and dyadic hyperplanes given to both; the launch counts of the card's."""
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.rbc import partition
+    from repro_torch.data import dyadic_hyperplanes
+
+    leaves = partition(torch.from_numpy(x), params.rbc)
+    hp = dyadic_hyperplanes(3, params.hash_bits, x.shape[1])
+    kernels.reset_launch_counts()
+    card = repro_torch.build(x, params, leaves=leaves, hyperplanes=hp, **kw)
+    counts = kernels.launch_counts()
+    cpu = repro_torch.build(x, params, leaves=leaves, hyperplanes=hp, device="cpu", **kw)
+    assert torch.equal(card.graph.cpu(), cpu.graph) and torch.equal(card.dists.cpu(), cpu.dists)
+    assert card.start == cpu.start and card.stats["streaming"] == cpu.stats["streaming"]
+    return card, counts
+
+
+@pytest.mark.parametrize("option", ("flat build", "flat fold", "no final prune"))
+def test_build_options_on_the_card_equal_cpu(cuda, option):
+    """The flat build, the flat fold and ``final_prune=False`` on integer
+    data: identical graphs on the card and the CPU; the flat paths launch
+    the leaf and hash kernels and never the merge kernel."""
+    import repro_torch
+    from repro_torch.core.rbc import RBCParams
+
+    x = _small_sift()
+    params = repro_torch.PiPNNParams(rbc=RBCParams(c_max=256, c_min=32, fanout=(4, 2)),
+                                     max_deg=32)
+    kw = {}
+    if option == "flat build":
+        kw["streaming"] = False
+    elif option == "flat fold":
+        params = params.with_(merge="flat")
+    else:
+        params = params.with_(final_prune=False)
+    card, counts = _card_and_cpu(x, params, **kw)
+    assert counts["leaf_knn"] > 0 and counts["edge_hash"] > 0, counts
+    assert (counts["segmented_merge"] == 0) == (option != "no final prune"), counts
+
+
+@pytest.mark.parametrize("method", ("bidirected", "directed", "inverted", "mst",
+                                    "robust_prune"))
+@pytest.mark.parametrize("streaming", (True, False))
+def test_leaf_methods_on_the_card_equal_cpu(cuda, method, streaming):
+    """Every leaf method, streamed and flat, on integer data: identical
+    graphs on the card and the CPU; the k-NN methods launch the leaf
+    kernel, every method the hash kernel, only streamed ones the merge."""
+    import repro_torch
+    from repro_torch.core.leaf import LeafParams
+    from repro_torch.core.rbc import RBCParams
+
+    x = _small_sift(4000, seed=1)
+    params = repro_torch.PiPNNParams(rbc=RBCParams(c_max=128, c_min=16, fanout=(4, 2)),
+                                     leaf=LeafParams(method=method, k=2, max_deg=32),
+                                     max_deg=32)
+    card, counts = _card_and_cpu(x, params, streaming=streaming)
+    streamed = streaming and method != "mst"
+    assert card.stats["streaming"] == streamed
+    assert (counts["leaf_knn"] > 0) == (method in ("bidirected", "directed", "inverted"))
+    assert counts["edge_hash"] > 0 and (counts["segmented_merge"] > 0) == streamed, counts
+
+
+@pytest.mark.parametrize("metric", ("l2", "mips"))
+def test_beam_search_single_on_the_card_equals_cpu(cuda, metric):
+    from repro_torch.core.beam_search import beam_search_single, brute_force_knn, medoid
+
+    x = _small_sift(3000, seed=2)
+    xt = torch.from_numpy(x)
+    graph = torch.from_numpy(brute_force_knn(xt, xt, 17, metric=metric)[:, 1:].astype(np.int32))
+    graph[::4, 10:] = -1
+    q = torch.from_numpy(_small_sift(300, seed=3))
+    for beam in (16, 64):
+        kw = dict(start=medoid(x), beam=beam, iters=beam + 4, metric=metric)
+        card = beam_search_single(graph.to(cuda), xt.to(cuda), q.to(cuda), **kw)
+        cpu = beam_search_single(graph, xt, q, **kw)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu))
+
+
+def test_leaf_topk_kernel_on_many_stream_chunks_at_once(cuda):
+    """The flat build calls the leaf kernel on many stream chunks of leaves
+    at once: equal to the plain version, and to the kernel chunk by chunk."""
+    rng = np.random.default_rng(30)
+    x = torch.from_numpy(_int_points(rng, 20_000, 128)).to(cuda)
+    ids = torch.from_numpy(_leaves(rng, 20_000, 3000, 256)).to(cuda)
+    got = leaf_knn.leaf_topk(x, ids, 2)
+    want = leaf_knn.leaf_topk_plain(x, ids, 2, block=64)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    parts = [leaf_knn.leaf_topk(x, ids[s:s + 8], 2) for s in range(0, 3000, 8)]
+    assert torch.equal(got[0], torch.cat([p[0] for p in parts]))
+    assert torch.equal(got[1], torch.cat([p[1] for p in parts]))
