@@ -109,6 +109,35 @@ Phases (any failure exits non-zero before the last line is printed):
    query at each beam (``iters = beam + 4``) beside phase 3's serving
    engine.  The launch counters are set to 0 before each path and read
    after it.
+8. serving: sharded serving and the serving loop on phase 3's graph and
+   queries at full size.  (a) ``ShardedServingIndex`` on one card: at
+   S = 1 its ids equal ``ServingIndex``'s at every beam; at S = 8 (float32,
+   router "all") recall@10 at least the single card's - 0.01 at every beam
+   (``BENCH_qps.json``'s sharded gate); router "leaders" with 2 probes,
+   and the int8 and bfloat16 packings (beam 64): recall and QPS beside
+   phase 3's;
+   each packing's halo (member / ghost / pad rows, ``halo_fraction``),
+   its bytes beside S * m * (4 + 4R + d * itemsize + 4 [+ 4]), and the
+   gather launches of each search (one a step for each shard).  The merged
+   rows never repeat an id, and on the Gaussian mixture at ``--n-small``
+   a ghost row's distance is bit-identical in every shard that holds it
+   (float32 and bfloat16).  (b) At ``--n-small`` on the integer data the
+   S = 8 packing and the float32 and int8 ids are identical on the card and
+   on the CPU.  (c) The fault drill at 1M: S = 8, shard 7 down for search
+   calls [1, 6), a 10 ms straggler at call 2, 5% NaN rows among 1,024
+   requests, ``ServeLoop(k=10, query_chunk=64, straggler_chunk=8,
+   max_queue=1024, probe_every=1)`` on a ladder made from phase 3's card
+   measurements (``ladder_from_bench`` on its records in
+   ``BENCH_qps.json``'s format): every request answered, structured errors
+   exactly on the poisoned rows, one tombstone and one re-admission,
+   degraded recall at least 0.85 of healthy.  (d) The loop on the single
+   card index, the 10,000 queries submitted 256 at a time: two-phase and
+   single-phase p50 / p99 latency, throughput, stragglers rerun, and the
+   phase-1-drained rows bit-identical between the two; open-loop Poisson
+   arrivals at 50% and 120% of the two-phase throughput (p50 / p99,
+   rejected requests, downshifts); a search forced to ``kernel_path="xla"``
+   launches no gather kernel and the calls around it do.  The launch
+   counters are set to 0 before each path and read after it.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -1355,6 +1384,374 @@ def phase_host_search(full: dict, x_np, q_np, dev, n_host: int = 200) -> dict:
     return out
 
 
+def _no_repeats(ids) -> bool:
+    """No merged row holds an id twice (-1 pads aside)."""
+    import numpy as np
+
+    s = np.sort(ids, axis=1)
+    return not bool(((s[:, 1:] == s[:, :-1]) & (s[:, 1:] >= 0)).any())
+
+
+def _halo_contract(sv, q, beam: int) -> dict:
+    """The halo's dedup contract on the card: every (query, global id) pair
+    that reaches more than one shard's beam carries the same distance bits
+    in each, and the merged rows repeat no id."""
+    import numpy as np
+    import torch
+
+    qt = torch.from_numpy(q).to(sv.device)
+    ids_s, ds_s, *_ = sv._shard_search(qt, None, beam=beam, iters=beam + 4, expansions=4,
+                                       early_exit=True, plain=False)
+    ids_s, ds_s = ids_s.cpu().numpy(), ds_s.cpu().numpy()
+    live = ids_s >= 0
+    key = (np.broadcast_to(np.arange(q.shape[0])[None, :, None], ids_s.shape)[live]
+           .astype(np.int64) * sv.n + ids_s[live])
+    bits = ds_s.view(np.int32)[live]
+    order = np.lexsort((bits, key))
+    key, bits = key[order], bits[order]
+    same = key[1:] == key[:-1]
+    check(bool((bits[1:][same] == bits[:-1][same]).all()),
+          "a ghost row's distance differs between the shards that hold it")
+    check(bool(same.any()), "no row reached two shards' beams")
+    merged = sv.search(q, k=10, beam=beam)
+    check(_no_repeats(merged), "a merged row repeats an id")
+    return dict(replicated_pairs=int(same.sum()), pairs=int(key.size), ghost_bits_equal=True,
+                merged_repeats=0)
+
+
+def _timed_search(sv, q, truth, beam: int, counter: str) -> dict:
+    """One search of every query: recall@10, QPS and the gather launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import recall_at_k
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, st = sv.search(q, k=10, beam=beam, with_stats=True)
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()[counter]
+    check(launches > 0 and st["kernel_path"] == "hbm", f"{counter} not launched (beam {beam})")
+    check(_no_repeats(ids), f"a merged row repeats an id (beam {beam})")
+    return dict(ids=ids, recall_at_10=recall_at_k(ids, truth), qps=q.shape[0] / dt, seconds=dt,
+                gather_launches=launches, mean_hops=float(st["hops"].mean()),
+                converged=float(st["converged"].mean()))
+
+
+def phase_sharded(full: dict, x_np, q_np, seed: int, dev, n_small: int) -> dict:
+    """Phase 8 (a) and (b): sharded serving at full size, S = 1 and 8 on one
+    card, then card against CPU at ``n_small``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core.serving import ServingIndex
+    from repro_torch.data import (VectorPipelineConfig, dyadic_hyperplanes, make_queries,
+                                  make_vectors, sift_like)
+    from repro_torch.distributed.serving import ShardedServingIndex
+
+    index, truth = full["index"], full["truth"]
+    single = full["searches"]["float32"]
+    out = {"launches": {}}
+    sv1 = ServingIndex.from_index(index, x_np, device=dev)
+    s1 = ShardedServingIndex.from_index(index, x_np, n_shards=1, device=dev)
+    out["s1"] = {}
+    for beam in BEAMS:
+        a = _timed_search(sv1, q_np, truth, beam, "gather_distance")
+        b = _timed_search(s1, q_np, truth, beam, "gather_distance")
+        check(np.array_equal(a["ids"], b["ids"]), f"S = 1 ids differ from ServingIndex's at "
+              f"beam {beam}")
+        out["s1"][beam] = dict(ids_equal=True, recall_at_10=a["recall_at_10"],
+                               single_qps=a["qps"], sharded_qps=b["qps"],
+                               single_launches=a["gather_launches"],
+                               sharded_launches=b["gather_launches"])
+        log("phase8 S=1", beam, json.dumps(out["s1"][beam]))
+    del s1
+    torch.cuda.empty_cache()
+
+    packs = {}
+    for name, dtype in (("float32", None), ("int8", "int8"), ("bfloat16", torch.bfloat16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        sv = ShardedServingIndex.from_index(index, x_np, n_shards=8, dtype=dtype, device=dev,
+                                            seed=seed)
+        torch.cuda.synchronize()
+        t_pack = time.perf_counter() - t0
+        hs = sv.halo_stats()
+        s, m = sv.n_shards, sv.shard_capacity
+        r, d = sv.graph.shape[2], sv.points.shape[2]
+        row = 4 + 4 * r + d * sv.points.element_size() + 4 + (4 if dtype == "int8" else 0)
+        out[f"pack_{name}"] = dict(
+            seconds=t_pack, shard_capacity=m, reckoned_bytes=s * m * row,
+            device_bytes=sv.device_bytes(breakdown=True),
+            per_shard_bytes=sv.device_bytes(per_shard=True),
+            peak_during_pack_bytes=torch.cuda.max_memory_allocated() - held,
+            members=hs["members"].tolist(), ghosts=hs["ghosts"].tolist(),
+            pads=hs["pads"].tolist(), halo_fraction=hs["halo_fraction"])
+        log("phase8 packing S=8", name, json.dumps(out[f"pack_{name}"]))
+        counter = "gather_distance_int8" if dtype == "int8" else "gather_distance"
+        routes = [("all", sv)]
+        if dtype is None:
+            routes.append(("leaders", dataclasses.replace(sv, router="leaders", n_probes=2,
+                                                          health=None)))
+        for route, svr in routes:
+            tag = f"s8_{name}_{route}"
+            out[tag] = {}
+            # the downcast copies at beam 64 only: on this data their
+            # sharded recall tracks float32's at every beam
+            for beam in BEAMS if dtype is None else (64,):
+                res = _timed_search(svr, q_np, truth, beam, counter)
+                ref = full["searches"][name][beam]
+                res.pop("ids")
+                res.update(single_card_recall_at_10=ref["recall_at_10"],
+                           single_card_qps=ref["qps"],
+                           gap=ref["recall_at_10"] - res["recall_at_10"],
+                           launches_per_shard=res["gather_launches"] / 8)
+                out[tag][beam] = res
+                log("phase8", tag, beam, json.dumps(res))
+                out["launches"][f"{tag}_b{beam}"] = res["gather_launches"]
+                if tag == "s8_float32_all":
+                    check(res["recall_at_10"] >= single[beam]["recall_at_10"] - 0.01,
+                          f"S = 8 recall@10 {res['recall_at_10']} at beam {beam} below the "
+                          f"single card's {single[beam]['recall_at_10']} - 0.01")
+        if dtype is None:
+            packs["float32"] = sv
+        else:
+            del sv
+        torch.cuda.empty_cache()
+
+    # the dedup contract on the Gaussian mixture the data are made from
+    cfg = VectorPipelineConfig(n=n_small, dim=128, n_clusters=1024, seed=seed)
+    xg, qg = make_vectors(cfg), make_queries(cfg, 1000)
+    gidx = repro_torch.build(xg, device=dev)
+    out["gaussian"] = {}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        sv = ShardedServingIndex.from_index(gidx, xg, n_shards=8, dtype=dtype, device=dev)
+        out["gaussian"][name] = _halo_contract(sv, qg, 64)
+        log("phase8 Gaussian dedup", name, json.dumps(out["gaussian"][name]))
+    del gidx, sv
+
+    # card against CPU on the integer data at n_small
+    xs = sift_like(make_vectors(cfg))
+    qs = sift_like(make_queries(cfg, 200))
+    sidx = repro_torch.build(xs, hyperplanes=dyadic_hyperplanes(seed, 12, 128), device=dev)
+    out["card_vs_cpu"] = {}
+    for name, dtype in (("float32", None), ("int8", "int8")):
+        card = ShardedServingIndex.from_index(sidx, xs, n_shards=8, dtype=dtype, device=dev)
+        cpu = ShardedServingIndex.from_index(sidx, xs, n_shards=8, dtype=dtype, device="cpu")
+        for field in ("gids", "graph", "points", "norms", "starts", "leaders", "scales"):
+            a, b = getattr(card, field), getattr(cpu, field)
+            check((a is None and b is None) or torch.equal(a.cpu(), b),
+                  f"S = 8 {name} packing's {field} differs between card and CPU")
+        t0 = time.perf_counter()
+        a = card.search(qs, k=10, beam=64)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = cpu.search(qs, k=10, beam=64)
+        t_cpu = time.perf_counter() - t0
+        check(np.array_equal(a, b), f"S = 8 {name} ids differ between card and CPU")
+        out["card_vs_cpu"][name] = dict(n=n_small, queries=200, packing_identical=True,
+                                        ids_identical=True, card_s=t_card, cpu_s=t_cpu)
+        log("phase8 card vs CPU", name, json.dumps(out["card_vs_cpu"][name]))
+    out["sv1"], out["s8"] = sv1, packs["float32"]
+    return out
+
+
+def _percentiles(lat) -> dict:
+    import numpy as np
+
+    a = np.asarray(lat, float) * 1e3
+    return dict(p50_ms=float(np.percentile(a, 50)), p99_ms=float(np.percentile(a, 99)))
+
+
+def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
+    """Phase 8 (c) and (d): the fault drill on the 1M S = 8 packing, then
+    the serving loop's latency on the single-card index, two-phase against
+    single-phase, an open-loop Poisson load and a search forced to "xla"."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import recall_at_k
+    from repro_torch.launch.serve_loop import QueueFull, ServeLoop, ladder_from_bench
+    from repro_torch.testing.faults import FaultPlan, inject_faults, poison_queries
+
+    sv1, s8, truth = sharded["sv1"], sharded["s8"], full["truth"]
+    out = {"launches": {}}
+    # the ladder from phase 3's own card measurements, in BENCH_qps.json's
+    # record format
+    recs = [dict(engine="serve_E4", beam=b, recall=r["recall_at_10"], qps=r["qps"])
+            for b, r in full["searches"]["float32"].items()]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "qps.json"
+        path.write_text(json.dumps([{"records": recs}]))
+        ladder = ladder_from_bench(path)
+    check(ladder is not None, "no ladder from phase 3's records")
+    out["ladder"] = [dict(name=p.name, beam=p.beam, recall=p.recall_bound, qps=p.qps)
+                     for p in ladder]
+    log("phase8 ladder", json.dumps(out["ladder"]))
+
+    # (c) the fault drill
+    nreq = 1024
+    q = q_np[:nreq]
+    healthy = recall_at_k(s8.search(q, k=10, beam=ladder[0].beam), truth[:nreq])
+    qp, rows = poison_queries(q, 0.05, seed=7)
+    plan = FaultPlan(shard_down={7: (1, 6)}, straggle={2: 0.01})
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with inject_faults(s8, plan) as inj:
+        loop = ServeLoop(s8, k=10, query_chunk=64, straggler_chunk=8, max_queue=1024,
+                         probe_every=1, ladder=ladder)
+        rid_to_row = {loop.submit(qp[i]): i for i in range(nreq)}
+        res = loop.run_until_drained()
+        for _ in range(12):
+            res += loop.step()
+            if not s8.down_shards:
+                break
+    wall = time.perf_counter() - t0
+    out["launches"]["drill"] = kernels.launch_counts()["gather_distance"]
+    check(len(res) == nreq, f"drill answered {len(res)} of {nreq} requests")
+    bad = sorted(rid_to_row[r.rid] for r in res if r.error)
+    check(bad == rows.tolist(), "structured errors are not exactly the poisoned rows")
+    check(all(r.error == "invalid:nan_inf" for r in res if not r.ok), "an unexpected error")
+    check(("shard_failure", 1, 7) in inj.events, "shard 7 did not fail at call 1")
+    check(loop.counters["shards_marked_down"] == 1 and loop.counters["shards_readmitted"] == 1,
+          f"tombstones / re-admissions: {dict(loop.counters)}")
+    check(not s8.down_shards and "search" not in vars(s8), "health or search not restored")
+    ids = np.full((nreq, 10), -1, np.int64)
+    for r in res:
+        if r.ok:
+            ids[rid_to_row[r.rid]] = r.ids
+    ok_rows = np.setdiff1d(np.arange(nreq), rows)
+    degraded = recall_at_k(ids[ok_rows], truth[:nreq][ok_rows])
+    check(degraded >= 0.85 * healthy, f"degraded recall {degraded} below 0.85 x {healthy}")
+    out["drill"] = dict(requests=nreq, answered=len(res), poisoned=len(rows),
+                        errors_exactly_poisoned=True, counters=dict(loop.counters),
+                        injected=[list(e) for e in inj.events], calls=inj.calls,
+                        healthy_recall_at_10=healthy, degraded_recall_at_10=degraded,
+                        wall_s=wall, gather_launches=out["launches"]["drill"],
+                        **_percentiles([r.latency for r in res if r.ok]))
+    log("phase8 drill", json.dumps(out["drill"]))
+
+    # (d) the loop on the single-card index, the same requests a chunk at a
+    # time: two-phase, single-phase, and two-phase with a shorter phase-1
+    # cap, so that some rows drain in phase 1 and the rest rerun in phase 2
+    chunk = 256
+    nbatch = -(-q_np.shape[0] // chunk)
+    kw = dict(k=10, query_chunk=chunk, straggler_chunk=32, max_queue=4 * chunk, ladder=ladder)
+    runs = {}
+    for name in ("two_phase", "single_phase", "two_phase_short_drain"):
+        opts = dict(two_phase=name != "single_phase")
+        if name == "two_phase_short_drain":
+            # halfway between the fewest steps a search can converge in
+            # (every beam slot expanded once) and the steps the single-phase
+            # batches took, each to its slowest row
+            top = ladder[0]
+            fewest = -(-top.beam // top.expansions)
+            steps = out["single_phase"]["gather_launches"] / nbatch - 1
+            opts["drain_iters"] = int((fewest + steps) // 2)
+        kernels.reset_launch_counts()
+        loop = ServeLoop(sv1, **opts, **kw)
+        torch.cuda.synchronize()
+        res = []
+        t0 = time.perf_counter()
+        for c0 in range(0, q_np.shape[0], chunk):
+            for qi in q_np[c0: c0 + chunk]:
+                loop.submit(qi)
+            res += loop.step()
+        res += loop.run_until_drained()
+        wall = time.perf_counter() - t0
+        byrid = {r.rid: r for r in res}
+        check(len(byrid) == q_np.shape[0] and all(r.ok and not r.partial for r in res),
+              f"{name}: the loop left a request unanswered or partial")
+        check(loop.counters["downshift"] == 0, f"{name}: the loop left the ladder's top rung")
+        ids = np.stack([byrid[i].ids for i in range(q_np.shape[0])])
+        runs[name] = byrid
+        out[name] = dict(requests=len(res), throughput_qps=len(res) / wall, wall_s=wall,
+                         drain_iters=loop.drain_iters, backstop_iters=loop.backstop_iters,
+                         recall_at_10=recall_at_k(ids, truth), counters=dict(loop.counters),
+                         op_point=loop.operating_point.name,
+                         gather_launches=kernels.launch_counts()["gather_distance"],
+                         **_percentiles([r.latency for r in res]))
+        out["launches"][name] = out[name]["gather_launches"]
+        log("phase8 loop", name, json.dumps(out[name]))
+    short = out["two_phase_short_drain"]["counters"]
+    check(short.get("drained_phase1", 0) > 0 and short.get("rerun_phase2", 0) > 0,
+          f"the short drain did not split the rows between the phases: {short}")
+    # every row, drained in phase 1 or rerun in phase 2, equals the
+    # single-phase row: a converged row is frozen, and a straggler's rerun
+    # runs the same search to the same cap
+    out["drained_identical"] = {}
+    for name in ("two_phase", "two_phase_short_drain"):
+        by_phase = {1: 0, 2: 0}
+        for i, r in runs[name].items():
+            check(np.array_equal(r.ids, runs["single_phase"][i].ids),
+                  f"{name}: a phase-{r.phase} row differs from the single-phase run")
+            by_phase[r.phase] += 1
+        out["drained_identical"][name] = dict(phase1_rows=by_phase[1], phase2_rows=by_phase[2],
+                                              identical=True)
+    log("phase8 drained identical", json.dumps(out["drained_identical"]))
+
+    # open-loop Poisson arrivals at 50% and 120% of the two-phase throughput
+    thr = out["two_phase"]["throughput_qps"]
+    for share in (0.5, 1.2):
+        rng = np.random.default_rng(11)
+        arrivals = np.cumsum(rng.exponential(1.0 / (share * thr), size=q_np.shape[0]))
+        loop = ServeLoop(sv1, **kw)
+        res, nexti, rejected = [], 0, 0
+        t0 = time.perf_counter()
+        while nexti < len(arrivals) or loop.queue_depth:
+            now = time.perf_counter() - t0
+            while nexti < len(arrivals) and arrivals[nexti] <= now:
+                try:
+                    loop.submit(q_np[nexti])
+                except QueueFull:
+                    rejected += 1
+                nexti += 1
+            if loop.queue_depth:
+                res += loop.step()
+            elif nexti < len(arrivals):
+                time.sleep(min(0.001, arrivals[nexti] - now))
+        wall = time.perf_counter() - t0
+        key = f"poisson_{int(share * 100)}"
+        out[key] = dict(rate_qps=share * thr, requests=len(arrivals), served=len(res),
+                        rejected=rejected, downshifts=loop.counters["downshift"],
+                        upshifts=loop.counters["upshift"], throughput_qps=len(res) / wall,
+                        wall_s=wall, **_percentiles([r.latency for r in res]))
+        check(len(res) + rejected == len(arrivals), f"{key}: requests lost")
+        check(len(res) > 0 and all(r.ok for r in res), f"{key}: a request failed")
+        if share < 1.0:
+            check(rejected == 0, f"{key}: {rejected} requests rejected below capacity")
+        log("phase8", key, json.dumps(out[key]))
+
+    # a search forced to "xla" launches no gather kernel; the calls around
+    # it do, and all three give the same ids on the integer data
+    out["forced_xla"] = {}
+    for name, sv in (("single", sv1), ("sharded", s8)):
+        calls = []
+        with inject_faults(sv, FaultPlan(force_kernel_path={1: "xla"})) as inj:
+            for _ in range(3):
+                kernels.reset_launch_counts()
+                ids, st = sv.search(q_np[:256], k=10, beam=32, with_stats=True)
+                calls.append((ids, st["kernel_path"], kernels.launch_counts()["gather_distance"]))
+        check(calls[1][1:] == ("xla", 0), f"{name}: the forced call launched {calls[1][2]}")
+        check(all(c[1] == "hbm" and c[2] > 0 for c in (calls[0], calls[2])),
+              f"{name}: a call around the forced one launched no gather kernel")
+        check(all(np.array_equal(c[0], calls[0][0]) for c in calls), f"{name}: forced ids")
+        out["forced_xla"][name] = dict(launches=[c[2] for c in calls],
+                                       paths=[c[1] for c in calls], events=inj.events)
+        log("phase8 forced xla", name, json.dumps(out["forced_xla"][name]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1443,6 +1840,14 @@ def main() -> int:
                                               args.seed, torch.device("cuda"))
     opts["search"] = phase_host_search(full, x_np, q_np, torch.device("cuda"))
     log("phase7 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    sharded = phase_sharded(full, x_np, q_np, args.seed, torch.device("cuda"), args.n_small)
+    served = phase_loop(full, sharded, q_np, torch.device("cuda"))
+    phase8 = {**sharded["launches"], **served["launches"]}
+    del sharded, served
+    log("phase8 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -1504,8 +1909,12 @@ def main() -> int:
                        late_bound_ms=late["bound_ms"],
                        late_valid_slots_per_row=late["valid_slots_per_row"])
         if name == "gather_distance_int8":
-            row.update(no_reuse_ms=s["no_reuse_ms"])
+            row.update(no_reuse_ms=s["no_reuse_ms"],
+                       phase8_launches={k: v for k, v in phase8.items() if "_int8_" in k})
         if name == "gather_distance":
+            # phase 8: each S = 8 search at full size (f32, bf16; router
+            # "all" and "leaders"), the fault drill and the serving loop
+            row.update(phase8_launches={k: v for k, v in phase8.items() if "_int8_" not in k})
             row.update(no_reuse_ms=s["no_reuse_ms"],
                        bf16_launches=full["launches"]["bfloat16"]["gather_distance"],
                        **{k: v for k, v in s.items() if k.startswith("bf16_")})

@@ -12,6 +12,13 @@ with rank-based merges (``merge_block``), one per expanded row.  The loop
 stops when no query has a live unvisited entry, with ``iters`` as the
 backstop; checking that costs one host sync per step.  Per-query ``hops``,
 ``dist_comps`` and ``converged`` telemetry match the reference.
+
+``kernel_path`` keeps the reference's names ("vmem" | "hbm" | "xla") so
+its callers and fault schedules run unchanged.  On the card "vmem" and
+"hbm" are the same gather kernel (there is one memory to read rows from)
+and report "hbm"; "xla" runs the plain PyTorch versions of the gather, and
+only when the caller names it.  CPU tensors always take the plain versions
+and report "xla".
 """
 from __future__ import annotations
 
@@ -21,9 +28,24 @@ import numpy as np
 import torch
 
 from repro_torch.core.metrics import check_metric, pairwise, point_norms
-from repro_torch.kernels.gather_distance import gather_distance
-from repro_torch.kernels.gather_distance_int8 import gather_distance_int8
+from repro_torch.kernels.gather_distance import gather_distance, gather_distance_plain
+from repro_torch.kernels.gather_distance_int8 import (gather_distance_int8,
+                                                      gather_distance_int8_plain)
 from repro_torch.kernels.topk import lex_key, ordered, stable_argsort, topf
+
+
+KERNEL_PATHS = ("vmem", "hbm", "xla")
+
+
+def resolve_kernel_path(points: torch.Tensor, kernel_path: str | None = None) -> str:
+    """The gather path a search over ``points`` runs: "hbm" (the CUDA
+    kernel) on the card unless ``kernel_path="xla"`` asks for the plain
+    version; "xla" on the CPU.  Any other name raises ``ValueError``."""
+    if kernel_path is not None and kernel_path not in KERNEL_PATHS:
+        raise ValueError(f"kernel_path must be one of {KERNEL_PATHS}, got {kernel_path!r}")
+    if points.device.type == "cpu" or kernel_path == "xla":
+        return "xla"
+    return "hbm"
 
 
 def default_iters(beam: int) -> int:
@@ -192,11 +214,12 @@ def _live(ids, ds, vis):
 
 def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
                        iters: int, metric: str, expansions: int, early_exit: bool,
-                       scales=None):
+                       scales=None, plain: bool = False):
     """Batched multi-expansion beam search core.  Returns (ids [Q, beam],
     dists [Q, beam], hops [Q], dist_comps [Q], converged [Q]).  With
     ``scales`` the points are the int8 packing and every distance block
-    comes from the int8 kernel."""
+    comes from the int8 kernel.  ``plain`` takes the gathers' plain
+    versions on any device (the "xla" path)."""
     n, r = graph.shape
     nq = queries.shape[0]
     dev = queries.device
@@ -208,11 +231,15 @@ def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
         # every step as data, as in the reference
         q_norms = point_norms(q32, metric)
 
+        gather8 = gather_distance_int8_plain if plain else gather_distance_int8
+
         def dist(ids):
-            return gather_distance_int8(x, scales, norms, q32, q_norms, ids, metric)
+            return gather8(x, scales, norms, q32, q_norms, ids, metric)
     else:
+        gather = gather_distance_plain if plain else gather_distance
+
         def dist(ids):
-            return gather_distance(x, norms, q32, ids, metric)
+            return gather(x, norms, q32, ids, metric)
     start_ids = torch.full((nq, 1), int(start), dtype=torch.int32, device=dev)
     d0 = dist(start_ids)[:, 0]
     ids = torch.full((nq, beam), -1, dtype=torch.int32, device=dev)
@@ -250,10 +277,12 @@ def _beam_search_multi(graph, x, norms, queries, start: int, *, beam: int,
 def beam_search_batch(graph, x, queries, *, start: int, beam: int,
                       iters: int | None = None, metric: str = "l2",
                       expansions: int = 4, norms=None, scales=None,
-                      early_exit: bool = True, with_stats: bool = False):
+                      early_exit: bool = True, with_stats: bool = False,
+                      kernel_path: str | None = None):
     """Batched multi-expansion beam search over tensors on one device.
     Returns (ids, dists) [Q, beam], or with ``with_stats`` also
-    (hops, dist_comps, converged).
+    (hops, dist_comps, converged).  ``kernel_path`` as in
+    ``resolve_kernel_path``.
 
     ``scales`` switches on int8 serving: ``x`` must then be the int8
     packing (``kernels.gather_distance_int8.quantize_symmetric``) with
@@ -278,7 +307,7 @@ def beam_search_batch(graph, x, queries, *, start: int, beam: int,
     ids, ds, hops, comps, converged = _beam_search_multi(
         graph, x, norms, queries, start, beam=beam, iters=int(iters),
         metric=metric, expansions=int(expansions), early_exit=bool(early_exit),
-        scales=scales)
+        scales=scales, plain=resolve_kernel_path(x, kernel_path) == "xla")
     if with_stats:
         return ids, ds, hops, comps, converged
     return ids, ds

@@ -338,21 +338,24 @@ def build(x, params: PiPNNParams | None = None, *, leaves: list[np.ndarray] | No
                       params=params, timings=timings, stats=stats)
 
 
-def serving_index(index: PiPNNIndex, x, *, dtype=None, device=None):
-    """The ``ServingIndex`` for ``(index, x)``, cached on the index: the
+def serving_index(index: PiPNNIndex, x, *, dtype=None, n_shards: int | None = None,
+                  device=None):
+    """The ``ServingIndex`` (or, with ``n_shards``, the
+    ``ShardedServingIndex``) for ``(index, x)``, cached on the index: the
     first call packs graph, points and norms (and the int8 scales with
     ``dtype="int8"``) onto the device, later calls with the same ``x``,
-    graph object, dtype and device reuse it."""
+    graph object, dtype, shard count and device reuse it."""
     from repro_torch.core.serving import ServingIndex
 
     dev = resolve_device(device)
-    key = (index.start, index.params.metric, None if dtype is None else str(dtype), str(dev))
+    key = (index.start, index.params.metric, None if dtype is None else str(dtype),
+           n_shards, str(dev))
     cached = getattr(index, "_serving", None)
     if (cached is not None and getattr(index, "_serving_x", None) is x
             and getattr(index, "_serving_graph", None) is index.graph
             and getattr(index, "_serving_key", None) == key):
         return cached
-    sv = ServingIndex.from_index(index, x, dtype=dtype, device=dev)
+    sv = ServingIndex.from_index(index, x, dtype=dtype, device=dev, n_shards=n_shards)
     index._serving, index._serving_x = sv, x
     index._serving_graph, index._serving_key = index.graph, key
     return sv
@@ -360,8 +363,8 @@ def serving_index(index: PiPNNIndex, x, *, dtype=None, device=None):
 
 def search(index: PiPNNIndex, x, queries, *, k: int = 10, beam: int = 32,
            batch: bool = True, expansions: int | None = None, iters: int | None = None,
-           query_chunk: int | None = None, dtype=None, with_stats: bool = False,
-           device=None):
+           query_chunk: int | None = None, dtype=None, n_shards: int | None = None,
+           with_stats: bool = False, device=None):
     """Query the index; returns [Q, k] neighbour ids (int64 numpy, -1-padded
     when fewer than ``k`` are found).
 
@@ -369,25 +372,27 @@ def search(index: PiPNNIndex, x, queries, *, k: int = 10, beam: int = 32,
     ``ServingIndex`` and the multi-expansion beam search (``expansions``
     default 4) on ``device``.  ``dtype`` downcasts the serving copy of the
     points (``torch.bfloat16``) or, with ``dtype="int8"``, serves the
-    scalar-quantized packing.
+    scalar-quantized packing.  ``n_shards`` serves through the sharded
+    packing (``distributed.serving.ShardedServingIndex``, all shards on
+    ``device``).
 
     ``batch=False`` is the pointer-chasing host oracle ``beam_search_np``,
     one query at a time on the host (``device`` is not used); it takes
     none of the serving options (``expansions``, ``iters``,
-    ``query_chunk``, ``dtype``, ``with_stats``) and raises ``ValueError``
-    when one is given."""
+    ``query_chunk``, ``dtype``, ``n_shards``, ``with_stats``) and raises
+    ``ValueError`` when one is given."""
     validate_search_params(k=k, beam=beam)
     if batch:
-        sv = serving_index(index, x, dtype=dtype, device=device)
+        sv = serving_index(index, x, dtype=dtype, n_shards=n_shards, device=device)
         return sv.search(queries, k=k, beam=beam,
                          expansions=4 if expansions is None else expansions,
                          iters=iters, query_chunk=query_chunk, with_stats=with_stats)
     if (with_stats or iters is not None or dtype is not None or expansions is not None
-            or query_chunk is not None):
+            or query_chunk is not None or n_shards is not None):
         raise ValueError(
-            "with_stats / iters / dtype / expansions / query_chunk are serving-path "
-            "options; the batch=False host oracle expands one vertex per hop and "
-            "does not take them")
+            "with_stats / iters / dtype / expansions / query_chunk / n_shards are "
+            "serving-path options; the batch=False host oracle expands one vertex per "
+            "hop and does not take them")
     x_host = _as_host_f32(x)
     q = validate_queries(_as_host_f32(queries) if isinstance(queries, torch.Tensor)
                          else queries, dim=x_host.shape[1])

@@ -8,21 +8,28 @@ points) and the entry point.  The points are float32, a downcast copy
 packing: int8 rows and [n] float32 per-point scales
 (``kernels.gather_distance_int8.quantize_symmetric``), a quarter of the
 float32 points' bytes, with the norm half of every distance kept exact.
-A ``search`` call then moves nothing but the queries in and the ids out,
-and runs the multi-expansion beam search (``beam_search.beam_search_batch``).  The reference's
-VMEM-vs-HBM kernel selection has no counterpart on the card: one gather
-kernel reads the points from device memory.
+A ``search`` call then moves nothing but the queries in and the ids out
+(``core.transfers``), and runs the multi-expansion beam search
+(``beam_search.beam_search_batch``).  The reference's VMEM-vs-HBM kernel
+selection has no counterpart on the card: one gather kernel reads the
+points from device memory, and ``search(kernel_path=)`` keeps the
+reference's names (``beam_search.resolve_kernel_path``).
+
+``from_graph(..., n_shards=S)`` / ``from_index(..., n_shards=S)`` pack a
+``distributed.serving.ShardedServingIndex`` instead: S partition-aligned
+shards with a 1-hop halo, all on one device, their results merged across
+shards (the reference's ``mesh=``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import numpy as np
 import torch
 
 from repro_torch.core import beam_search as _bs
 from repro_torch.core.metrics import point_norms
+from repro_torch.core.transfers import to_device, to_host
 from repro_torch.core.validation import validate_queries, validate_search_params
 from repro_torch.device import resolve_device
 from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
@@ -75,14 +82,26 @@ class ServingIndex:
 
     @classmethod
     def from_graph(cls, graph, x, start: int, *, metric: str = "l2", dtype=None,
-                   device=None):
+                   device=None, n_shards: int | None = None, **shard_kw):
         """Pack an adjacency matrix and its points (numpy arrays or tensors)
         onto ``device`` (default: the card, raising without one).
 
         ``dtype`` (e.g. ``torch.bfloat16``) downcasts the points copy;
         ``dtype="int8"`` (or ``torch.int8``, ``np.int8``) packs the
         scalar-quantized copy.  Either way the norms are computed from the
-        float32 points first."""
+        float32 points first.  ``n_shards`` packs a
+        ``distributed.serving.ShardedServingIndex`` instead, and the
+        shard-only options (``router``, ``n_probes``, ``seed``, ``halo``)
+        pass through to it; without ``n_shards`` they raise ``TypeError``."""
+        if n_shards is not None:
+            from repro_torch.distributed.serving import ShardedServingIndex
+
+            return ShardedServingIndex.from_graph(graph, x, start, n_shards=n_shards,
+                                                  metric=metric, dtype=dtype, device=device,
+                                                  **shard_kw)
+        if shard_kw:
+            raise TypeError(f"single-device serving does not accept {sorted(shard_kw)} "
+                            "(options of the sharded packing, n_shards=)")
         dev = resolve_device(device)
         points = _to_device(x, torch.float32, dev)
         norms = point_norms(points, metric)
@@ -95,50 +114,79 @@ class ServingIndex:
                    norms=norms, start=int(start), metric=metric, scales=scales)
 
     @classmethod
-    def from_index(cls, index, x, *, dtype=None, device=None):
-        """Pack a ``PiPNNIndex`` over its dataset ``x``."""
-        return cls.from_graph(index.graph, x, index.start,
-                              metric=index.params.metric, dtype=dtype, device=device)
+    def from_index(cls, index, x, *, dtype=None, device=None, n_shards: int | None = None,
+                   **shard_kw):
+        """Pack a ``PiPNNIndex`` over its dataset ``x`` (sharded with
+        ``n_shards``)."""
+        return cls.from_graph(index.graph, x, index.start, metric=index.params.metric,
+                              dtype=dtype, device=device, n_shards=n_shards, **shard_kw)
 
     def search(self, queries, *, k: int = 10, beam: int = 32, expansions: int = 4,
                iters: int | None = None, early_exit: bool = True,
-               query_chunk: int | None = None, with_stats: bool = False):
+               kernel_path: str | None = None, query_chunk: int | None = None,
+               with_stats: bool = False):
         """Serve a query batch; returns [Q, k] neighbour ids (int64 numpy,
         -1-padded when fewer than ``k`` are found).
 
         ``query_chunk`` bounds the batch per engine run; a short last chunk
         is zero-padded to the chunk's shape, as in the reference.
-        ``with_stats=True`` also returns per-query ``hops``, ``dist_comps``
-        and ``converged`` telemetry.  NaN/Inf rows, a wrong width, or
-        ``k``/``beam`` below 1 raise at this boundary."""
-        validate_search_params(k=k, beam=beam)
-        if query_chunk is not None and int(query_chunk) <= 0:
-            raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
-        q = validate_queries(queries, dim=int(self.points.shape[1]))
-        nq = q.shape[0]
+        ``kernel_path`` (None | "vmem" | "hbm" | "xla") picks the gather as
+        ``beam_search.resolve_kernel_path`` says.  ``with_stats=True`` also
+        returns per-query ``hops``, ``dist_comps`` and ``converged``
+        telemetry and the ``kernel_path`` that ran.  NaN/Inf rows, a wrong
+        width, or ``k``/``beam`` below 1 raise at this boundary."""
         iters_cap = int(iters if iters is not None else _bs.default_iters(beam))
-        parts: dict[str, list] = {"ids": [np.full((0, k), -1)],
-                                  "hops": [np.empty(0, np.int32)],
-                                  "dist_comps": [np.empty(0, np.int32)],
-                                  "converged": [np.empty(0, bool)]}
-        chunk = int(query_chunk) if query_chunk else max(nq, 1)
-        for s in range(0, nq, chunk):
-            qc = q[s: s + chunk]
-            take = qc.shape[0]
-            if take < chunk:
-                qc = np.pad(qc, ((0, chunk - take), (0, 0)))
+        path = _bs.resolve_kernel_path(self.points, kernel_path)
+
+        def run(qt):
             ids, _, hops, comps, conv = _bs.beam_search_batch(
-                self.graph, self.points, torch.from_numpy(qc).to(self.device),
-                start=self.start, beam=beam, iters=iters_cap, metric=self.metric,
-                expansions=expansions, norms=self.norms, scales=self.scales,
-                early_exit=early_exit, with_stats=True)
-            parts["ids"].append(_bs.pad_ids(ids[:take].cpu().numpy(), k))
-            for key, val in zip(("hops", "dist_comps", "converged"), (hops, comps, conv)):
-                parts[key].append(val[:take].cpu().numpy())
-        out = np.concatenate(parts["ids"]).astype(np.int64)
-        if not with_stats:
-            return out
-        stats: dict[str, Any] = {key: np.concatenate(parts[key])
-                                 for key in ("hops", "dist_comps", "converged")}
-        stats.update(expansions=int(expansions), iters_cap=iters_cap)
-        return out, stats
+                self.graph, self.points, qt, start=self.start, beam=beam, iters=iters_cap,
+                metric=self.metric, expansions=expansions, norms=self.norms,
+                scales=self.scales, early_exit=early_exit, with_stats=True, kernel_path=path)
+            return ids, hops, comps, conv
+
+        out = serve_chunks(queries, run, k=k, beam=beam, dim=int(self.points.shape[1]),
+                           device=self.device, query_chunk=query_chunk,
+                           with_stats=with_stats)
+        if with_stats:
+            out[1].update(expansions=int(expansions), iters_cap=iters_cap, kernel_path=path)
+        return out
+
+
+def serve_chunks(queries, run, *, k: int, beam: int, dim: int, device,
+                 query_chunk: int | None, with_stats: bool):
+    """The host side of a ``search`` call, shared by ``ServingIndex`` and
+    ``distributed.serving.ShardedServingIndex``: validate ``k``, ``beam``,
+    ``query_chunk`` and the queries, cut them into chunks of
+    ``query_chunk`` (zero-padding a short chunk to it), hand each chunk to
+    ``run`` on the device, and cut its padded rows off again.
+
+    ``run(queries [chunk, d] tensor)`` returns device tensors (ids [chunk,
+    >= 1], hops, dist_comps, converged [chunk]).  Returns [Q, k] int64 ids
+    (-1-padded) and, with ``with_stats``, the dict of the three per-query
+    telemetry arrays.  A chunk crosses the host boundary once in (the
+    queries) and once out (the ids), three more times out with stats."""
+    validate_search_params(k=k, beam=beam)
+    if query_chunk is not None and int(query_chunk) <= 0:
+        raise ValueError(f"query_chunk must be >= 1, got {query_chunk}")
+    q = validate_queries(queries, dim=dim)
+    nq = q.shape[0]
+    keys = ("hops", "dist_comps", "converged")
+    parts: dict[str, list] = {"ids": [np.full((0, k), -1)], "hops": [np.empty(0, np.int32)],
+                              "dist_comps": [np.empty(0, np.int32)],
+                              "converged": [np.empty(0, bool)]}
+    chunk = int(query_chunk) if query_chunk else max(nq, 1)
+    for s in range(0, nq, chunk):
+        qc = q[s: s + chunk]
+        take = qc.shape[0]
+        if take < chunk:
+            qc = np.pad(qc, ((0, chunk - take), (0, 0)))
+        ids, *tele = run(to_device(qc, device))
+        parts["ids"].append(_bs.pad_ids(to_host(ids)[:take], k))
+        if with_stats:
+            for key, val in zip(keys, tele):
+                parts[key].append(to_host(val)[:take])
+    out = np.concatenate(parts["ids"]).astype(np.int64)
+    if not with_stats:
+        return out
+    return out, {key: np.concatenate(parts[key]) for key in keys}

@@ -1,0 +1,96 @@
+"""Straggler detection, preemption and the serving loop's latency window
+(counterpart of ``repro/distributed/fault_tolerance.py``; pure numpy and
+the standard library, copied so the port imports nothing of the JAX
+package).
+
+  * ``RunGuard`` flips ``should_stop`` on SIGTERM/SIGINT, so a loop can
+    finish its step and stop cleanly.
+  * ``StepWatchdog`` keeps a rolling window of step times and flags a step
+    slower than ``sigma`` standard deviations (and 1.5x the mean).
+  * ``RollingPercentile`` is the serving loop's SLO signal: request
+    latencies stream in and the loop reads ``percentile(99)``.
+
+The reference's ``resume_or_init`` restores a checkpoint; the port has no
+checkpoint module yet, so it is not here.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import signal
+from typing import Callable
+
+import numpy as np
+
+
+class RunGuard:
+    """Cooperative preemption: flips ``should_stop`` on SIGTERM/SIGINT."""
+
+    def __init__(self, install_handlers: bool = True):
+        self.should_stop = False
+        self._prev = {}
+        if install_handlers:
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                try:
+                    self._prev[sig] = signal.signal(sig, self._handler)
+                except ValueError:  # not the main thread
+                    pass
+
+    def _handler(self, signum, frame):
+        self.should_stop = True
+
+    def restore_handlers(self):
+        for sig, h in self._prev.items():
+            signal.signal(sig, h)
+
+
+@dataclasses.dataclass
+class StepWatchdog:
+    """Rolling straggler detector over synchronous step times."""
+
+    window: int = 50
+    sigma: float = 4.0
+    min_samples: int = 10
+    on_straggler: Callable[[int, float, float], None] | None = None
+    _times: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=50))
+    flagged: list[tuple[int, float]] = dataclasses.field(default_factory=list)
+
+    def record(self, step: int, seconds: float) -> bool:
+        """Returns True if this step is flagged as a straggler."""
+        is_straggler = False
+        if len(self._times) >= self.min_samples:
+            mu = float(np.mean(self._times))
+            sd = float(np.std(self._times)) + 1e-9
+            if seconds > mu + self.sigma * sd and seconds > 1.5 * mu:
+                is_straggler = True
+                self.flagged.append((step, seconds))
+                if self.on_straggler:
+                    self.on_straggler(step, seconds, mu)
+        self._times.append(seconds)
+        return is_straggler
+
+
+@dataclasses.dataclass
+class RollingPercentile:
+    """Rolling percentile over a bounded sample window (the latest
+    ``window`` values)."""
+
+    window: int = 256
+    _values: collections.deque = dataclasses.field(default_factory=collections.deque)
+
+    def __post_init__(self):
+        self._values = collections.deque(self._values, maxlen=int(self.window))
+
+    def __len__(self) -> int:
+        return len(self._values)
+
+    def record(self, seconds: float) -> None:
+        self._values.append(float(seconds))
+
+    def percentile(self, pct: float = 99.0) -> float:
+        """Percentile over the current window (0.0 while empty: callers
+        check ``len() >= min_samples`` before acting on it)."""
+        if not self._values:
+            return 0.0
+        return float(np.percentile(np.fromiter(self._values, dtype=float), pct))

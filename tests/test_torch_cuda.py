@@ -825,3 +825,125 @@ def test_leaf_topk_kernel_on_many_stream_chunks_at_once(cuda):
     parts = [leaf_knn.leaf_topk(x, ids[s:s + 8], 2) for s in range(0, 3000, 8)]
     assert torch.equal(got[0], torch.cat([p[0] for p in parts]))
     assert torch.equal(got[1], torch.cat([p[1] for p in parts]))
+
+
+# ----------------------------------------------------- sharded serving, loop --
+
+def _sharded_fixture(gaussian: bool = False, n: int = 6000, d: int = 32):
+    """A CPU-built graph over ``n`` points (integer, or the Gaussian mixture
+    they are made from) and 300 queries of the same kind."""
+    from repro_torch.core import pipnn
+    from repro_torch.data import VectorPipelineConfig, make_queries, make_vectors, sift_like
+
+    cfg = VectorPipelineConfig(n=n, dim=d, n_clusters=32, seed=4)
+    x, q = make_vectors(cfg), make_queries(cfg, 300)
+    if not gaussian:
+        x, q = sift_like(x), sift_like(q)
+    idx = pipnn.build(x, pipnn.PiPNNParams(max_deg=32), device="cpu")
+    return idx, x, q
+
+
+@pytest.mark.parametrize("dtype", (None, "int8"), ids=("f32", "int8"))
+def test_sharded_serving_on_the_card_equals_cpu(cuda, dtype):
+    """S = 8 on integer data: the packing and the ids of both routers are the
+    same on the card and on the CPU, and the card search launches the
+    gather kernel once a step for every shard that serves."""
+    from repro_torch import kernels
+    from repro_torch.distributed.serving import ShardedServingIndex
+
+    idx, x, q = _sharded_fixture()
+    for kw in ({}, {"router": "leaders", "n_probes": 2}):
+        card = ShardedServingIndex.from_index(idx, x, n_shards=8, dtype=dtype, device=cuda,
+                                              **kw)
+        cpu = ShardedServingIndex.from_index(idx, x, n_shards=8, dtype=dtype, device="cpu",
+                                             **kw)
+        for name in ("gids", "graph", "points", "norms", "starts", "leaders", "scales"):
+            a, b = getattr(card, name), getattr(cpu, name)
+            assert (a is None and b is None) or torch.equal(a.cpu(), b), name
+        kernels.reset_launch_counts()
+        got, stats = card.search(q, k=10, beam=32, with_stats=True)
+        counter = "gather_distance_int8" if dtype else "gather_distance"
+        assert kernels.launch_counts()[counter] > 0 and stats["kernel_path"] == "hbm"
+        want, cstats = cpu.search(q, k=10, beam=32, with_stats=True)
+        np.testing.assert_array_equal(got, want)
+        for key in ("hops", "dist_comps", "converged"):
+            np.testing.assert_array_equal(stats[key], cstats[key])
+
+
+@pytest.mark.parametrize("dtype", (None, torch.bfloat16), ids=("f32", "bf16"))
+def test_sharded_halo_dedup_contract_on_the_card(cuda, dtype):
+    """On Gaussian data a ghost row's distance to a query, from the gather
+    kernel, is bit-identical in every shard that holds it (its sum order
+    does not depend on its slot), and no merged row repeats an id."""
+    from repro_torch.distributed.serving import ShardedServingIndex
+
+    idx, x, q = _sharded_fixture(gaussian=True)
+    sv = ShardedServingIndex.from_index(idx, x, n_shards=8, dtype=dtype, device=cuda)
+    qt = torch.from_numpy(q).to(cuda)
+    ids_s, ds_s, *_ = sv._shard_search(qt, None, beam=64, iters=68, expansions=4,
+                                       early_exit=True, plain=False)
+    ids_s, ds_s = ids_s.cpu().numpy(), ds_s.cpu().numpy()
+    seen, repeats = {}, 0
+    for s, qi, j in zip(*np.nonzero(ids_s >= 0)):
+        key = (int(qi), int(ids_s[s, qi, j]))
+        if key in seen:
+            repeats += 1
+            assert seen[key] == ds_s[s, qi, j].tobytes(), key
+        seen[key] = ds_s[s, qi, j].tobytes()
+    assert repeats > 0
+    for row in sv.search(q, k=10, beam=64):
+        live = row[row >= 0]
+        assert len(np.unique(live)) == len(live)
+
+
+def test_forced_xla_search_launches_no_gather_kernel(cuda):
+    """``kernel_path="xla"`` runs the plain gather (no launch) and gives the
+    kernel's ids on integer data; every other path launches the kernel."""
+    from repro_torch import kernels
+    from repro_torch.core.serving import ServingIndex
+
+    idx, x, q = _sharded_fixture(n=3000)
+    for n_shards in (None, 4):
+        for dtype, counter in ((None, "gather_distance"), ("int8", "gather_distance_int8")):
+            sv = ServingIndex.from_index(idx, x, dtype=dtype, device=cuda, n_shards=n_shards)
+            runs = {}
+            for path in (None, "vmem", "hbm", "xla"):
+                kernels.reset_launch_counts()
+                ids, stats = sv.search(q, k=10, beam=32, kernel_path=path, with_stats=True)
+                runs[path] = (ids, stats["kernel_path"], kernels.launch_counts()[counter])
+            assert runs["xla"][1:] == ("xla", 0)
+            for path in (None, "vmem", "hbm"):
+                assert runs[path][1] == "hbm" and runs[path][2] > 0
+                np.testing.assert_array_equal(runs[path][0], runs["xla"][0])
+            with pytest.raises(ValueError, match="kernel_path"):
+                sv.search(q, kernel_path="mosaic")
+
+
+def test_probe_shard_readmits_through_the_patched_search(cuda):
+    """Under ``inject_faults`` the default probe goes through the patched
+    ``search``: it fails while the shard's outage is scheduled and re-admits
+    the shard once the window has closed; the serving loop counts one
+    tombstone and one re-admission."""
+    from repro_torch.core.serving import ServingIndex
+    from repro_torch.launch.serve_loop import ServeLoop
+    from repro_torch.testing.faults import FaultPlan, inject_faults
+
+    idx, x, q = _sharded_fixture(n=3000)
+    sv = ServingIndex.from_index(idx, x, device=cuda, n_shards=4)
+    with inject_faults(sv, FaultPlan(shard_down={3: (1, 4)})) as inj:
+        sv.search(q[:8], k=10)                            # call 0: healthy
+        sv.mark_shard_down(3)
+        assert not sv.probe_shard(3)                      # call 1: in the window
+        assert sv.down_shards == (3,)
+        sv.search(q[:8], k=10)                            # call 2: degraded
+        assert not sv.probe_shard(3)                      # call 3
+        assert sv.probe_shard(3)                          # call 4: window closed
+    assert [e[:2] for e in inj.events] == [("shard_failure", 1), ("shard_failure", 3)]
+    assert not sv.down_shards and "search" not in vars(sv)
+    with inject_faults(sv, FaultPlan(shard_down={1: (1, 3)})):
+        loop = ServeLoop(sv, k=10, query_chunk=32, probe_every=1)
+        for qi in q[:128]:
+            loop.submit(qi)
+        res = loop.run_until_drained()
+    assert len(res) == 128 and all(r.ok for r in res)
+    assert loop.counters["shards_marked_down"] == 1 == loop.counters["shards_readmitted"]

@@ -59,6 +59,20 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     idx = index_from_arrays(graph, np.zeros((16, 2), np.float32), 0, device="cpu")
     with pytest.raises(RuntimeError):
         repro_torch.search(idx, x, x[:2])
+    # the sharded packing and the retriever, by every route
+    from repro_torch.distributed.serving import ShardedServingIndex
+    from repro_torch.launch.serve import Retriever
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ShardedServingIndex.from_graph(graph, x, 0, n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServingIndex.from_graph(graph, x, 0, n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.search(idx, x, x[:2], n_shards=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Retriever(x, idx)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Retriever(x)
 
 
 def test_full_precision_matmul_is_pinned():
