@@ -138,6 +138,38 @@ Phases (any failure exits non-zero before the last line is printed):
    rejected requests, downshifts); a search forced to ``kernel_path="xla"``
    launches no gather kernel and the calls around it do.  The launch
    counters are set to 0 before each path and read after it.
+9. the distributed build (``launch/build_index.py::build_distributed``) on
+   one card, all S shards in one process, at
+   ``DistBuildParams(dim=128, n_tile=2**18, l0=16)`` (every other field
+   the reference's production default; at S = 8 each shard has the
+   shapes of one chip of the reference's 512-chip tile step) on the first
+   262,144 points and phase 3's queries.  A smaller ``--n`` takes the
+   largest power-of-two tile with two tiles in ``n`` (l0 stays 16).
+   (a) One tile at S = 1 and S = 8:
+   wall seconds of the tile and final-prune steps, their stats, the
+   entries ``group_by_capacity`` drops silently at each stage, the leaves'
+   fill before the cut to c_max, peak device
+   memory, mean degree, isolated points, and recall@10 and QPS at each
+   beam from start 0 (the reference's choice) beside the default
+   ``build`` of the same points; recall@10 at beam 128 at least the floor,
+   no isolated point, and the distance, top-k and merge kernels launched.
+   (b) Two tiles at S = 8: the first tile's rows equal (a)'s graph and no
+   edge crosses the tiles' boundary (the reference builds each tile
+   alone).  (c) The variants ``quantized`` (the int8 distance kernel must
+   launch), ``bf16leaf``, ``opt`` and ``merge="flat"`` (no merge launch)
+   at S = 8: recall, times and launches; the int8 recall is reported, not
+   gated.  (d) The distance, top-k, int8 distance and merge kernels at
+   this path's shapes (each one's first call on shard 0: level 0, a
+   level-1 chunk, a leaf chunk, a fold) against their plain versions,
+   bit-exact, with kernel, plain and library times and bounds.  (e) Card
+   against CPU at one ``tiny`` tile of dim 128, S = 8, baseline and
+   quantized, on integer rows whose int8 round trip is exact (SIFT-like
+   values halved, each row's largest entry 127) and dyadic hyperplanes:
+   identical graphs and dists.  (f) ``knn_graph_pipnn`` on the 262,144
+   points (k = 10, beam 32, ``PiPNNParams()``): build, query and total
+   seconds, and ``knn_graph_recall`` on 2,000 points at least the
+   reference test's 0.85 (the paper's target is 0.95).  The launch
+   counters are set to 0 before each path and read after it.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -145,6 +177,7 @@ the line before it the ``kernels`` JSON, and the last line the result JSON.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -168,6 +201,15 @@ BEAMS = (32, 64, 128)
 # port's int8 path is held to exactness instead: card ids equal CPU ids.
 RECALL_SLACK = {"int8": 0.02, "bfloat16": 0.01}
 GATED = ("bfloat16",)
+# phase 9: S emulated shards on one card, the tile (the largest power of
+# two with two tiles in --n, at most 2^18) and level-0 leaders, the variants
+# run at S, and the reference test's k-NN-graph recall floor
+# (tests/test_system.py:107)
+DIST_SHARDS = 8
+DIST_TILE = 2 ** 18
+DIST_L0 = 16
+DIST_VARIANTS = ("quantized", "bf16leaf", "opt", "flat")
+DIST_KNN_FLOOR = 0.85
 
 
 def log(*a) -> None:
@@ -1752,6 +1794,439 @@ def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
     return out
 
 
+class DistProbe:
+    """Instruments ``build_distributed`` through ``launch.build_index``'s
+    module globals for one run: wall seconds of each tile step and final
+    prune step (the card synchronised around each), the tile steps' stats,
+    the entries each ``group_by_capacity`` stage drops silently, and the
+    leaves' fill before the cut to c_max.  A tile step's groupings are
+    told apart by their (groups, capacity) from
+    ``DistBuildParams.derived``, which must differ between its stages; it
+    must group S times at each of them (dispatch, buckets, leaves, edges),
+    a final prune step S times (requests).  With
+    ``capture`` it also keeps a copy of the first inputs of the level-0
+    and level-1 assignments, the leaf top-k, the int8 leaf products and
+    the fold, for phase 9's kernel checks.  With ``stages`` it times each
+    stage's calls, the card synchronised around each (which slows the
+    run): the level-0 and level-1 assignments, the groupings, the leaf
+    chunks, the folds and the prune blocks."""
+
+    TILE_STAGES = ("bucket", "leaf", "edge")
+
+    TIMED = {"_assign": "assign", "_leaf_chunk_edges": "leaf_chunks", "_fold": "fold",
+             "prune_reservoir_block": "prune_blocks"}
+
+    def __init__(self, bi, capture: bool = False, stages: bool = False):
+        self.bi, self.capture, self.stages = bi, capture, stages
+        self.stage_s = {k: 0.0 for k in ("group",) + tuple(self.TIMED.values())}
+        self.drops = {k: 0 for k in ("dispatch",) + self.TILE_STAGES + ("request",)}
+        self.tile_s, self.prune_s, self.stats, self.inputs = [], [], [], {}
+        self.step, self.calls, self.saved, self.stage_of = None, {}, {}, {}
+        self.leaf_counts = []
+
+    def _timed(self, make, kind, secs, stats=None):
+        import torch
+
+        def outer(n_shards, p):
+            step = make(n_shards, p)
+            dv = p.derived(n_shards)
+            if kind == "prune":
+                self.stage_of[kind] = {(n_shards, dv["cap_req"]): "request"}
+            else:
+                self.stage_of[kind] = {(n_shards, dv["cap_send"]): "dispatch",
+                                       (dv["nb_loc"], dv["cap_b"]): "bucket",
+                                       (dv["n_leaf"], p.c_max): "leaf",
+                                       (n_shards, dv["cap_edge"]): "edge"}
+                check(len(self.stage_of[kind]) == 4,
+                      f"phase 9: two of the tile step's groupings share a shape: {dv}")
+
+            def timed(*a):
+                torch.cuda.synchronize()
+                self.step, self.calls = kind, {}
+                t0 = time.perf_counter()
+                out = step(*a)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                want = ({"request": n_shards} if kind == "prune" else
+                        {k: n_shards for k in ("dispatch",) + self.TILE_STAGES})
+                check(self.calls == want, f"phase 9 {kind} step grouped {self.calls}, "
+                      f"expected {want}")
+                if stats is not None:
+                    stats.append(out[1].tolist())
+                return out
+            return timed
+        return outer
+
+    def _stage(self, name, real):
+        import torch
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            self.stage_s[name] += time.perf_counter() - t0
+            return out
+        return timed
+
+    def _group(self, real):
+        if self.stages:
+            real = self._stage("group", real)
+
+        import torch
+
+        def group(keys, valid, n_groups, cap, payloads, shuffle=False):
+            outs, ok = real(keys, valid, n_groups, cap, payloads, shuffle)
+            stage = self.stage_of[self.step][(n_groups, cap)]
+            self.calls[stage] = self.calls.get(stage, 0) + 1
+            self.drops[stage] += int(valid.sum()) - int(ok.sum())
+            if stage == "leaf":
+                self.leaf_counts.append(
+                    torch.bincount(keys[valid].long(), minlength=n_groups).cpu())
+            return outs, ok
+        return group
+
+    def leaf_fill(self, c_max: int) -> dict:
+        """The leaves' sizes before the cut to c_max, over every tile and
+        shard: leaf slots, slots holding an instance, quantiles of the
+        held leaves' sizes, the leaves over c_max and the instances they
+        hold."""
+        import torch
+
+        counts = torch.cat(self.leaf_counts).double()
+        held = counts[counts > 0]
+        over = counts > c_max
+        q = torch.quantile(held, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64))
+        return dict(slots=int(counts.numel()), used=int(held.numel()),
+                    mean=float(held.mean()), p50=float(q[0]), p90=float(q[1]),
+                    p99=float(q[2]), max=int(held.max()), over_c_max=int(over.sum()),
+                    instances=int(counts.sum()), instances_in_over=int(counts[over].sum()),
+                    dropped=int((counts[over] - c_max).sum()))
+
+    def _first(self, name, real, keep):
+        def spy(*a, **kw):
+            if name not in self.inputs and keep(a, kw):
+                self.inputs[name] = ([t.clone() if hasattr(t, "clone") else t for t in a],
+                                     {k: v.clone() if hasattr(v, "clone") else v
+                                      for k, v in kw.items()})
+            return real(*a, **kw)
+        return spy
+
+    def __enter__(self):
+        bi = self.bi
+        names = ["make_tile_step", "make_final_prune_step", "group_by_capacity"]
+        if self.stages:
+            names += list(self.TIMED)
+        if self.capture:
+            names += ["leader_assign", "rowwise_topk", "pairwise_distance_int8",
+                      "merge_segmented_edges"]
+        self.saved = {n: getattr(bi, n) for n in names}
+        bi.make_tile_step = self._timed(self.saved["make_tile_step"], "tile", self.tile_s,
+                                        self.stats)
+        bi.make_final_prune_step = self._timed(self.saved["make_final_prune_step"], "prune",
+                                               self.prune_s)
+        bi.group_by_capacity = self._group(self.saved["group_by_capacity"])
+        if self.stages:
+            for n, label in self.TIMED.items():
+                setattr(bi, n, self._stage(label, self.saved[n]))
+        if self.capture:
+            level0 = lambda a, kw: kw.get("point_valid") is None
+            bi.leader_assign = self._first("level0", self.saved["leader_assign"], level0)
+            la = bi.leader_assign
+            bi.leader_assign = self._first("level1", la, lambda a, kw: not level0(a, kw))
+            bi.rowwise_topk = self._first("leaf_topk", self.saved["rowwise_topk"],
+                                          lambda a, kw: True)
+            bi.pairwise_distance_int8 = self._first(
+                "int8", self.saved["pairwise_distance_int8"], lambda a, kw: True)
+            bi.merge_segmented_edges = self._first(
+                "fold", self.saved["merge_segmented_edges"], lambda a, kw: True)
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.bi, n, f)
+
+
+def _graph_stats(graph) -> dict:
+    deg = (graph >= 0).sum(1)
+    return dict(mean_degree=float(deg.mean()), isolated=int((deg == 0).sum()))
+
+
+def _dist_run(x_np, q_np, truth, s: int, p, dev, name: str, needed=(), absent=(),
+              capture=False, search=True, stages=False) -> dict:
+    """One ``build_distributed(x, s, p)`` on the card with the launch and
+    peak-memory counters set just before it; its steps' times, stats,
+    silent drops, graph statistics, launches and (``search``) recall@10
+    and QPS at each beam from start 0 through the serving engine."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.convert import index_from_arrays
+    from repro_torch.launch import build_index as bi
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    with DistProbe(bi, capture, stages) as probe:
+        t0 = time.perf_counter()
+        graph, dists = bi.build_distributed(x_np, s, p, seed=0, device=dev)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _path_launches(name, needed)
+    for k in absent:
+        check(launches[k] == 0, f"kernel {k} ran on the {name} path")
+    fill = probe.leaf_fill(p.c_max)
+    check(fill["dropped"] == probe.drops["leaf"], f"phase 9 {name}: the leaves' fill drops "
+          f"{fill['dropped']}, the leaf grouping {probe.drops['leaf']}")
+    out = dict(n=x_np.shape[0], shards=s, wall_s=wall, tile_s=probe.tile_s,
+               final_prune_s=probe.prune_s, stats=probe.stats, silent_drops=probe.drops,
+               leaf_fill=fill, peak_device_bytes=peak, launches=launches, **_graph_stats(graph))
+    if stages:
+        out["stage_s"] = probe.stage_s
+    log(f"phase9 {name}", json.dumps(out))
+    out.update(graph=graph, dists=dists, inputs=probe.inputs)
+    if search:
+        index = index_from_arrays(graph, dists, 0, device=dev)
+        out["search"] = _searches(index, x_np, q_np, truth, dev, tag=f"phase9 {name}")
+        del index
+    return out
+
+
+def dist_kernels(base: dict, quant: dict) -> dict:
+    """Phase 9 (d): the distance, top-k, int8 distance and merge kernels
+    on the inputs the S = 8 tile step gives them (the first call of each
+    on shard 0), against their plain versions, with kernel, plain and
+    library times and bounds."""
+    import torch
+
+    from repro_torch.core.hashprune import Reservoir, hashprune_flat
+    from repro_torch.kernels import distance, topk
+
+    out = {}
+    (pts0, lead0, f0), _ = base["inputs"]["level0"]
+    (pts1, lead1, f1), kw1 = base["inputs"]["level1"]
+    inf = torch.full((), float("inf"), device=pts0.device)
+    for tag, a, b, k, kw in (("level0", pts0[None], lead0[None], f0, {}),
+                             ("level1", pts1.contiguous(), lead1.contiguous(), f1, kw1)):
+        bsz, m, d = a.shape
+        nl = b.shape[1]
+        dk = distance.pairwise_distance(a, b)
+        check(torch.equal(dk, distance.pairwise_distance_plain(a, b)),
+              f"pairwise_distance != plain at phase 9's {tag} shape")
+        flops = 2.0 * bsz * m * nl * d
+        tc = bound(3.0 * flops, 4.0 * (bsz * m * d + bsz * nl * d + bsz * m * nl),
+                   PEAK_TF32_FLOPS)
+        out[f"pairwise_distance_{tag}"] = dict(
+            shape=[bsz, m, nl, d], max_abs_err=0.0, tolerance="exact on integer data",
+            ms=cuda_ms(lambda: distance.pairwise_distance(a, b), 20),
+            plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b), 5),
+            library="torch.cdist", library_ms=cuda_ms(lambda: torch.cdist(a, b), 10),
+            bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=3.0 * flops,
+            bytes=tc["bytes"])
+        if kw.get("leader_valid") is not None:      # masked as leader_assign masks it
+            dk = torch.where(kw["leader_valid"][:, None, :], dk, inf)
+            dk = torch.where(kw["point_valid"][:, :, None], dk, inf).contiguous()
+        got, want = topk.rowwise_topk(dk, k), topk.rowwise_topk_plain(dk, k)
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"rowwise_topk != plain at phase 9's {tag} shape")
+        out[f"rowwise_topk_{tag}"] = dict(
+            shape=[bsz, m, nl], k=k, max_abs_err=0.0, tolerance="exact (ids and values)",
+            empty_slots=float((got[0] < 0).float().mean()),
+            ms=cuda_ms(lambda: topk.rowwise_topk(dk, k), 20),
+            plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, k), 5),
+            library="torch.topk(largest=False)",
+            library_ms=cuda_ms(lambda: torch.topk(dk, k, largest=False), 20),
+            **bound(0.0, 4.0 * bsz * m * nl + 8.0 * bsz * m * k))
+        del dk, got, want
+
+    (dl, k), _ = base["inputs"]["leaf_topk"]
+    got, want = topk.rowwise_topk(dl, k), topk.rowwise_topk_plain(dl, k)
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          "rowwise_topk != plain at phase 9's leaf shape")
+    bsz, m, n = dl.shape
+    out["rowwise_topk_leaf"] = dict(
+        shape=[bsz, m, n], k=k, max_abs_err=0.0, tolerance="exact (ids and values)",
+        empty_slots=float((got[0] < 0).float().mean()),
+        ms=cuda_ms(lambda: topk.rowwise_topk(dl, k), 20),
+        plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dl, k), 5),
+        library="torch.topk(largest=False)",
+        library_ms=cuda_ms(lambda: torch.topk(dl, k, largest=False), 20),
+        **bound(0.0, 4.0 * bsz * m * n + 8.0 * bsz * m * k))
+    del got, want
+
+    (qa, qb), _ = quant["inputs"]["int8"]
+    dk = distance.pairwise_distance_int8(qa, qb)
+    check(torch.equal(dk, distance.pairwise_distance_int8_plain(qa, qb)),
+          "pairwise_distance_int8 != plain at phase 9's leaf shape")
+    bsz, m, d = qa.shape
+    n = qb.shape[1]
+    out["pairwise_distance_int8_leaf"] = dict(
+        shape=[bsz, m, n, d], max_abs_err=0.0, tolerance="exact (int32)",
+        ms=cuda_ms(lambda: distance.pairwise_distance_int8(qa, qb), 20),
+        plain_ms=cuda_ms(lambda: distance.pairwise_distance_int8_plain(qa, qb), 5),
+        library=None, library_ms=None,
+        cross_term_library=f"torch._int_mm, {bsz} calls (the products alone)",
+        cross_term_library_ms=cuda_ms(
+            lambda: [torch._int_mm(qa[i], qb[i].T) for i in range(bsz)], 20),
+        **bound(2.0 * bsz * m * n * d, bsz * (m + n) * d + 4.0 * bsz * m * n, PEAK_INT8_OPS))
+    del dk
+
+    fold, _ = base["inputs"]["fold"]
+    a = Reservoir(*fold[:3])
+    b = hashprune_flat(*fold[3:], n_points=a.ids.shape[0], l_max=a.ids.shape[1])
+    out["merge_sorted_reservoirs_fold"] = dict(shape=list(a.ids.shape), **merge_stats((a, b)))
+    for name, s in out.items():
+        log(f"phase9 kernel {name}", json.dumps(s))
+    return out
+
+
+def _round_trip_rows(x):
+    """SIFT-like integers halved onto [0, 127], each row's largest entry
+    set to 127: the int8 scheme's scale is then exactly 1.0, so the
+    quantized route's vectors stay integers and every float32 sum of the
+    build is exact on both devices."""
+    import numpy as np
+
+    y = np.floor(x / 2)
+    y[np.arange(len(y)), np.argmax(y, axis=1)] = 127
+    return y.astype(np.float32)
+
+
+def dist_tile(n: int) -> int:
+    """Phase 9's tile: the largest power of two with two tiles in ``n``
+    points, at most ``DIST_TILE``."""
+    return min(DIST_TILE, 1 << ((n // 2).bit_length() - 1))
+
+
+def phase_dist(x_np, q_np, seed: int, dev, n_tile: int, l0: int) -> dict:
+    """Phase 9: the distributed build (``launch/build_index.py``) on one
+    card, all S shards in one process; see the module docstring."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.core import knn_graph
+    from repro_torch.core.beam_search import brute_force_knn
+    from repro_torch.data import dyadic_hyperplanes
+    from repro_torch.launch import build_index as bi
+
+    s8 = DIST_SHARDS
+    p = bi.DistBuildParams(dim=x_np.shape[1], n_tile=n_tile, l0=l0)
+    x = np.ascontiguousarray(x_np[:n_tile])
+    log("phase9 config", json.dumps(dict(params=dataclasses.asdict(p), n=n_tile,
+                                         derived={s: p.derived(s) for s in (1, s8)})))
+    truth = brute_force_knn(torch.from_numpy(x).to(dev), torch.from_numpy(q_np).to(dev), 10,
+                            chunk=256)
+    out = {}
+    # (a) one tile at S = 1 and S = 8, and the default build of the same points
+    need = ("pairwise_distance", "rowwise_topk", "segmented_merge")
+    runs = {}
+    for s in (1, s8):
+        runs[s] = _dist_run(x, q_np, truth, s, p, dev, f"S{s}", need,
+                            absent=("pairwise_distance_int8",), capture=s == s8)
+        r = runs[s]["search"][128]["recall_at_10"]
+        check(r >= RECALL_FLOOR, f"distributed build at S = {s}: recall@10 {r} at beam 128 "
+              f"below {RECALL_FLOOR}")
+        check(runs[s]["isolated"] == 0, f"distributed build at S = {s}: "
+              f"{runs[s]['isolated']} isolated points")
+    idx, wall, peak, _, launches = _timed_build(x, repro_torch.PiPNNParams(seed=seed), dev,
+                                                "phase9 default build",
+                                                ("leaf_knn", "edge_hash", "segmented_merge"))
+    out["default_build"] = dict(wall_s=wall, peak_device_bytes=peak, timings=idx.timings,
+                                mean_degree=idx.average_degree(), launches=launches)
+    log("phase9 default build", json.dumps(out["default_build"]))
+    out["default_build"]["search"] = _searches(idx, x, q_np, truth, dev,
+                                               tag="phase9 default build")
+    del idx
+    torch.cuda.empty_cache()
+
+    # (b) two tiles at S = 8: the first tile's rows are (a)'s, no edge
+    # crosses; its steps timed stage by stage
+    x2 = np.ascontiguousarray(x_np[:2 * n_tile])
+    check(len(x2) > n_tile, f"phase 9 (b) needs two tiles: {len(x2)} points, tile {n_tile}")
+    two = _dist_run(x2, q_np, None, s8, p, dev, "two_tiles", need, search=False, stages=True)
+    same = np.array_equal(two["graph"][:n_tile], runs[s8]["graph"]) and np.array_equal(
+        two["dists"][:n_tile], runs[s8]["dists"])
+    check(same, "the two-tile build's first tile differs from the one-tile build")
+    g2 = two["graph"]
+    ok = g2 >= 0
+    tile_of = np.broadcast_to((np.arange(len(g2)) // n_tile)[:, None], g2.shape)
+    crossing = int(((g2 // n_tile) != tile_of)[ok].sum())
+    check(crossing == 0, f"{crossing} edges cross the tile boundary")
+    out["two_tiles"] = {k: two[k] for k in ("wall_s", "tile_s", "final_prune_s", "stats",
+                                           "silent_drops", "leaf_fill", "peak_device_bytes",
+                                           "launches", "mean_degree", "isolated", "stage_s")}
+    out["two_tiles"].update(first_tile_identical=same, crossing_edges=crossing)
+    log("phase9 two_tiles checks", json.dumps(dict(first_tile_identical=same,
+                                                   crossing_edges=crossing)))
+    del two, g2, ok, tile_of
+
+    # (c) the variants at S = 8 on the one tile
+    out["variants"] = {}
+    for v in DIST_VARIANTS:
+        pv = (dataclasses.replace(p, merge="flat") if v == "flat" else
+              dataclasses.replace(bi.production_params(p.dim, v), n_tile=n_tile, l0=l0))
+        int8 = pv.route_dtype == "int8"
+        r = _dist_run(x, q_np, truth, s8, pv, dev, v,
+                      need[:2] + (("pairwise_distance_int8",) if int8 else ())
+                      + (("segmented_merge",) if v != "flat" else ()),
+                      absent=(() if int8 else ("pairwise_distance_int8",))
+                      + (("segmented_merge",) if v == "flat" else ()), capture=v == "quantized")
+        if v == "quantized":
+            quant = r
+        if v == "flat":
+            # mergeability: the flat fold gives the segmented fold's graph
+            check(np.array_equal(r["graph"], runs[s8]["graph"])
+                  and np.array_equal(r["dists"], runs[s8]["dists"]),
+                  "the flat fold's graph differs from the segmented fold's")
+        out["variants"][v] = {k: r[k] for k in ("wall_s", "tile_s", "final_prune_s", "stats",
+                                               "silent_drops", "leaf_fill", "launches",
+                                               "mean_degree", "isolated", "search",
+                                               "peak_device_bytes")}
+    # (d) the kernels at this path's shapes
+    out["kernels"] = dist_kernels(runs[s8], quant)
+    del quant
+    for s in (1, s8):
+        runs[s].pop("inputs")
+        out[f"S{s}"] = {k: v for k, v in runs[s].items() if k not in ("graph", "dists")}
+    del runs
+    torch.cuda.empty_cache()
+
+    # (e) card against CPU on integer data whose int8 round trip is exact
+    ps = bi.DistBuildParams.tiny(dim=x_np.shape[1], l0=16)
+    xs = _round_trip_rows(x_np[:ps.n_tile])
+    hp = dyadic_hyperplanes(seed, ps.m_bits, ps.dim)
+    out["card_vs_cpu"] = {}
+    for v, kw in (("baseline", {}), ("quantized", dict(route_dtype="int8"))):
+        pv = dataclasses.replace(ps, **kw)
+        res = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            res[name] = bi.build_distributed(xs, s8, pv, hyperplanes=hp, device=d)
+            res[f"{name}_s"] = time.perf_counter() - t0
+        same = all(np.array_equal(a, b) for a, b in zip(res["card"], res["cpu"]))
+        check(same, f"phase 9 card vs CPU ({v}): graphs differ in "
+              f"{int((res['card'][0] != res['cpu'][0]).sum())} slots")
+        out["card_vs_cpu"][v] = dict(n=len(xs), identical=same, card_s=res["card_s"],
+                                     cpu_s=res["cpu_s"], **_graph_stats(res["card"][0]))
+    log("phase9 card_vs_cpu", json.dumps(out["card_vs_cpu"]))
+
+    # (f) the k-NN-graph task on the same points
+    kernels.reset_launch_counts()
+    knn, times = knn_graph.knn_graph_pipnn(x, k=10, beam=32, params=repro_torch.PiPNNParams(),
+                                           device=dev)
+    launches = _path_launches("phase9 knn_graph", ("leaf_knn", "edge_hash", "segmented_merge",
+                                                   "gather_distance"))
+    rec = knn_graph.knn_graph_recall(x, knn, k=10, sample=2000, device=dev)
+    check(rec >= DIST_KNN_FLOOR, f"k-NN-graph recall {rec} below {DIST_KNN_FLOOR}")
+    out["knn_graph"] = dict(n=len(x), k=10, beam=32, recall=rec, paper_target=0.95,
+                            floor=DIST_KNN_FLOOR, launches=launches, **times)
+    log("phase9 knn_graph", json.dumps(out["knn_graph"]))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1848,6 +2323,11 @@ def main() -> int:
     phase8 = {**sharded["launches"], **served["launches"]}
     del sharded, served
     log("phase8 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    dist = phase_dist(x_np, q_np, args.seed, torch.device("cuda"), dist_tile(args.n), DIST_L0)
+    log("phase9 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -1866,14 +2346,27 @@ def main() -> int:
                                  "gather_distance_int8", "int8"),
         "pairwise_distance": ("distance.cu", "src/repro/kernels/distance.py:91",
                               "pairwise_distance", "static build"),
-        "pairwise_distance_int8": ("distance.cu", "src/repro/kernels/distance.py:123", None,
-                                   None),
+        "pairwise_distance_int8": ("distance.cu", "src/repro/kernels/distance.py:123",
+                                   "pairwise_distance_int8", "quantized"),
         "rowwise_topk": ("topk.cu", "src/repro/kernels/topk.py:70", "rowwise_topk",
                          "static build")}
+    # phase 9's runs: the distributed build at S = 1 and 8 and its variants
+    p9 = {**{f"S{s}": dist[f"S{s}"]["launches"] for s in (1, DIST_SHARDS)},
+          "two_tiles": dist["two_tiles"]["launches"],
+          **{v: r["launches"] for v, r in dist["variants"].items()},
+          "knn_graph": dist["knn_graph"]["launches"]}
+    p9_kernels = {"pairwise_distance": ("pairwise_distance_level0", "pairwise_distance_level1"),
+                  "rowwise_topk": ("rowwise_topk_level0", "rowwise_topk_level1",
+                                   "rowwise_topk_leaf"),
+                  "pairwise_distance_int8": ("pairwise_distance_int8_leaf",),
+                  "merge_sorted_reservoirs": ("merge_sorted_reservoirs_fold",)}
     rows = []
     for name, (cu, replaces, counter, path) in sources.items():
         s = kstats[name]
-        launches = s["launches"] if counter is None else full["launches"][path][counter]
+        # the int8 distance's path is phase 9's quantized build, its first
+        # build path; every other kernel's is named in ``sources``
+        launches = (p9[path][counter] if name == "pairwise_distance_int8"
+                    else full["launches"][path][counter])
         row = dict(name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{cu}",
                    replaces=replaces, launches=launches, max_abs_err=s["max_abs_err"],
                    ms=s["ms"], kernel_ms=s["ms"], plain_ms=s["plain_ms"],
@@ -1902,7 +2395,11 @@ def main() -> int:
             row.update({k: v for k, v in s.items() if k.startswith("k16_")})
         if name == "pairwise_distance_int8":
             row.update(cross_term_library=s["cross_term_library"],
-                       cross_term_library_ms=s["cross_term_library_ms"])
+                       cross_term_library_ms=s["cross_term_library_ms"],
+                       phase5_launches=s["launches"])
+        if name in p9_kernels:
+            row.update(phase9_launches={k: v[counter] for k, v in p9.items()},
+                       phase9_shapes={k: dist["kernels"][k] for k in p9_kernels[name]})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -10,8 +10,9 @@ index).  The GEMM stays ``torch.matmul``: the reference leaves it to XLA.
 ``use_pallas=True``: the matrix comes from the ``pairwise_distance`` kernel
 and the selection from the ``rowwise_topk`` kernel, whose ids are -1 where
 a row has fewer than ``f`` finite entries.  The static Stage-1 carve
-(``rbc.ball_carve_device``) takes it at both levels; the worklist carve
-keeps the ``topf`` route.
+(``rbc.ball_carve_device``) and the distributed build
+(``launch.build_index``) take it at both levels; the worklist carve keeps
+the ``topf`` route.
 """
 from __future__ import annotations
 

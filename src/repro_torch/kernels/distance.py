@@ -24,9 +24,10 @@ D (D = 0 writes zeros).  The products run on the int8 tensor cores
 output tiles with both panels in a 2-stage ``cp.async`` ring, the norms
 are ``__dp4a`` sums of the same slices, and the epilogue writes 16-byte
 streaming stores, a row's 32 columns by 8 lanes, while the ring loads the
-next tile.  Bound: bytes, the int32 output written once.  As in the
-reference, no build path reaches it; its launches are counted apart
-(``launches_int8``).
+next tile.  Bound: bytes, the int32 output written once.  The distributed
+build's quantized route (``launch.build_index``, ``route_dtype="int8"``)
+takes its leaf products from it, where the reference forms them with an
+int32 ``einsum``; its launches are counted apart (``launches_int8``).
 """
 from __future__ import annotations
 

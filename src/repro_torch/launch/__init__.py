@@ -1,1 +1,3 @@
-"""Serving entry points of the port; module names follow ``repro.launch``."""
+"""Entry points of the port beyond ``build`` and ``search``: serving
+(``serve``, ``serve_loop``) and the distributed build (``build_index``);
+module names follow ``repro.launch``."""

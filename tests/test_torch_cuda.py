@@ -947,3 +947,102 @@ def test_probe_shard_readmits_through_the_patched_search(cuda):
         res = loop.run_until_drained()
     assert len(res) == 128 and all(r.ok for r in res)
     assert loop.counters["shards_marked_down"] == 1 == loop.counters["shards_readmitted"]
+
+
+# ------------------------------------------------- the distributed build ---
+
+def _round_trip_points(n, d, seed):
+    from _torch_build_reference import round_trip_integers
+
+    return round_trip_integers(n, d, seed)
+
+
+def _outlier_points(n, d, seed):
+    from _torch_build_reference import outlier_points
+
+    return outlier_points(n, d, seed)
+
+
+BUILD_VARIANTS = {"baseline": {}, "int8": dict(route_dtype="int8"),
+                  "bf16": dict(leaf_dtype="bf16"), "flat": dict(merge="flat")}
+
+
+@pytest.mark.parametrize("n_shards", (1, 8))
+@pytest.mark.parametrize("variant", tuple(BUILD_VARIANTS))
+def test_tile_step_kernel_route_equals_plain_route(cuda, variant, n_shards):
+    """The tile step's kernel route on the card (distance and top-k at
+    both levels, the top-k on the leaves, the int8 distance for the
+    quantized route, the merge for the segmented fold) equals its plain
+    route (the CPU run) exactly: integer points whose int8 round trip is
+    exact, dyadic hyperplanes, and a far-away two-point bucket on which
+    the CPU tests see both -1 traps fire."""
+    from repro_torch import kernels
+    from repro_torch.core.hashprune import reservoir_init
+    from repro_torch.data import dyadic_hyperplanes
+    from repro_torch.launch import build_index as bi
+
+    p = bi.DistBuildParams.tiny(l0=16, **BUILD_VARIANTS[variant])
+    x = _outlier_points(p.n_tile, 16, seed=1)
+    hp = dyadic_hyperplanes(3, p.m_bits, p.dim)
+    step = bi.make_tile_step(n_shards, p)
+    want, want_st = step(torch.from_numpy(x), hp, reservoir_init(p.n_tile, p.l_max))
+    kernels.reset_launch_counts()
+    got, got_st = step(torch.from_numpy(x).to(cuda), hp,
+                       reservoir_init(p.n_tile, p.l_max, device=cuda))
+    counts = kernels.launch_counts()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert torch.equal(got_st.cpu(), want_st)
+    assert counts["pairwise_distance"] > 0 and counts["rowwise_topk"] > 0
+    assert (counts["pairwise_distance_int8"] > 0) == (variant == "int8")
+    assert (counts["segmented_merge"] > 0) == (variant != "flat")
+
+
+def test_build_distributed_on_the_card_equals_cpu(cuda):
+    """Two tiles (the second with the far-away filler) at S = 8, final
+    prune on and off: the card's graph and dists are the CPU's."""
+    from repro_torch.data import dyadic_hyperplanes
+    from repro_torch.launch import build_index as bi
+
+    p = bi.DistBuildParams.tiny(l0=16)
+    x = _round_trip_points(3000, 16, seed=2)
+    hp = dyadic_hyperplanes(4, p.m_bits, p.dim)
+    for final_prune in (True, False):
+        g, d = bi.build_distributed(x, 8, p, final_prune=final_prune, hyperplanes=hp,
+                                    device=cuda)
+        wg, wd = bi.build_distributed(x, 8, p, final_prune=final_prune, hyperplanes=hp,
+                                      device="cpu")
+        np.testing.assert_array_equal(g, wg)
+        np.testing.assert_array_equal(d, wd)
+
+
+def test_knn_graph_on_the_card(cuda):
+    """The k-NN-graph task on the card with the reference test's own data,
+    parameters and gate (``tests/test_system.py::test_knn_graph_task``):
+    the build's and the search's kernels launch, and the recall clears
+    0.85."""
+    from repro_torch import kernels
+    from repro_torch.core import knn_graph, pipnn
+    from repro_torch.core.leaf import LeafParams
+    from repro_torch.core.rbc import RBCParams
+
+    x = np.random.default_rng(11).standard_normal((4000, 24)).astype(np.float32)
+    p = pipnn.PiPNNParams(rbc=RBCParams(c_max=256, c_min=32, fanout=(4, 2)),
+                          leaf=LeafParams(k=3), l_max=64, max_deg=32, seed=0)
+    kernels.reset_launch_counts()
+    knn, times = knn_graph.knn_graph_pipnn(x, k=10, beam=48, params=p, device=cuda)
+    counts = kernels.launch_counts()
+    assert knn.shape == (4000, 10) and times["total"] > 0
+    assert counts["leaf_knn"] > 0 and counts["gather_distance"] > 0
+    assert knn_graph.knn_graph_recall(x, knn, k=10, sample=400, device=cuda) > 0.85
+
+
+def test_hcnng_on_the_card_equals_cpu(cuda):
+    from repro_torch.core import baselines
+
+    x = np.random.default_rng(5).integers(0, 6, (800, 8)).astype(np.float32)
+    kw = dict(c_max=64, replicas=8, max_deg=6, seed=2)
+    g, s, _ = baselines.build_hcnng(x, baselines.HCNNGParams(**kw), device=cuda)
+    wg, ws, _ = baselines.build_hcnng(x, baselines.HCNNGParams(**kw), device="cpu")
+    np.testing.assert_array_equal(g, wg)
+    assert s == ws
