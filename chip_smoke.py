@@ -170,6 +170,21 @@ Phases (any failure exits non-zero before the last line is printed):
    seconds, and ``knn_graph_recall`` on 2,000 points at least the
    reference test's 0.85 (the paper's target is 0.95).  The launch
    counters are set to 0 before each path and read after it.
+10. the shard mesh (``launch/mesh.py``) over a process group: a one-rank
+   NCCL group in this process (``init_mesh`` through a ``FileStore`` in a
+   temporary directory, destroyed at the end of the phase), S = 8 shards
+   local to rank 0, so every exchange runs through ``all_to_all_single``
+   / ``all_gather`` / ``all_reduce``.  The group's set-up and the first
+   collective (which builds the communicator) are timed on their own.
+   (a) ``build_distributed`` over the mesh at phase 9's shapes: graph and
+   dists identical to phase 9's S = 8 one-process build; tile and prune
+   seconds beside phase 9's, peak device memory, and the distance, top-k
+   and merge launches.  (b) Phase 3's graph served at S = 8 (router
+   "all", float32 and int8) over the mesh and with ``n_shards=8``, the
+   first 2,000 queries at each beam after an untimed warm-up search each,
+   the packing that runs first alternating from beam to beam: identical
+   ids, recall@10, QPS and gather launches of both.  One card cannot time a multi-card run: these
+   are the collectives' costs on one rank.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -210,6 +225,8 @@ DIST_TILE = 2 ** 18
 DIST_L0 = 16
 DIST_VARIANTS = ("quantized", "bf16leaf", "opt", "flat")
 DIST_KNN_FLOOR = 0.85
+# phase 10: the queries each mesh search serves (the first of phase 3's)
+MESH_QUERIES = 2000
 
 
 def log(*a) -> None:
@@ -1827,8 +1844,11 @@ class DistProbe:
     def _timed(self, make, kind, secs, stats=None):
         import torch
 
-        def outer(n_shards, p):
-            step = make(n_shards, p)
+        def outer(mesh, p):
+            # a mesh or a shard count; each groups once a local shard
+            step = make(mesh, p)
+            n_shards = getattr(mesh, "n_shards", mesh)
+            n_local = len(getattr(mesh, "local", range(n_shards)))
             dv = p.derived(n_shards)
             if kind == "prune":
                 self.stage_of[kind] = {(n_shards, dv["cap_req"]): "request"}
@@ -1847,8 +1867,8 @@ class DistProbe:
                 out = step(*a)
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
-                want = ({"request": n_shards} if kind == "prune" else
-                        {k: n_shards for k in ("dispatch",) + self.TILE_STAGES})
+                want = ({"request": n_local} if kind == "prune" else
+                        {k: n_local for k in ("dispatch",) + self.TILE_STAGES})
                 check(self.calls == want, f"phase 9 {kind} step grouped {self.calls}, "
                       f"expected {want}")
                 if stats is not None:
@@ -1952,12 +1972,13 @@ def _graph_stats(graph) -> dict:
     return dict(mean_degree=float(deg.mean()), isolated=int((deg == 0).sum()))
 
 
-def _dist_run(x_np, q_np, truth, s: int, p, dev, name: str, needed=(), absent=(),
-              capture=False, search=True, stages=False) -> dict:
-    """One ``build_distributed(x, s, p)`` on the card with the launch and
-    peak-memory counters set just before it; its steps' times, stats,
-    silent drops, graph statistics, launches and (``search``) recall@10
-    and QPS at each beam from start 0 through the serving engine."""
+def _dist_run(x_np, q_np, truth, s, p, dev, name: str, needed=(), absent=(),
+              capture=False, search=True, stages=False, phase: str = "phase9") -> dict:
+    """One ``build_distributed(x, s, p)`` on the card (``s`` a shard count,
+    or a mesh on ``dev``) with the launch and peak-memory counters set just
+    before it; its steps' times, stats, silent drops, graph statistics,
+    launches and (``search``) recall@10 and QPS at each beam from start 0
+    through the serving engine."""
     import torch
 
     from repro_torch import kernels
@@ -1970,7 +1991,8 @@ def _dist_run(x_np, q_np, truth, s: int, p, dev, name: str, needed=(), absent=()
     kernels.reset_launch_counts()
     with DistProbe(bi, capture, stages) as probe:
         t0 = time.perf_counter()
-        graph, dists = bi.build_distributed(x_np, s, p, seed=0, device=dev)
+        graph, dists = bi.build_distributed(x_np, s, p, seed=0,
+                                            device=dev if isinstance(s, int) else None)
         wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = _path_launches(name, needed)
@@ -1979,12 +2001,13 @@ def _dist_run(x_np, q_np, truth, s: int, p, dev, name: str, needed=(), absent=()
     fill = probe.leaf_fill(p.c_max)
     check(fill["dropped"] == probe.drops["leaf"], f"phase 9 {name}: the leaves' fill drops "
           f"{fill['dropped']}, the leaf grouping {probe.drops['leaf']}")
-    out = dict(n=x_np.shape[0], shards=s, wall_s=wall, tile_s=probe.tile_s,
+    out = dict(n=x_np.shape[0], shards=getattr(s, "n_shards", s), wall_s=wall,
+               tile_s=probe.tile_s,
                final_prune_s=probe.prune_s, stats=probe.stats, silent_drops=probe.drops,
                leaf_fill=fill, peak_device_bytes=peak, launches=launches, **_graph_stats(graph))
     if stages:
         out["stage_s"] = probe.stage_s
-    log(f"phase9 {name}", json.dumps(out))
+    log(f"{phase} {name}", json.dumps(out))
     out.update(graph=graph, dists=dists, inputs=probe.inputs)
     if search:
         index = index_from_arrays(graph, dists, 0, device=dev)
@@ -2188,6 +2211,8 @@ def phase_dist(x_np, q_np, seed: int, dev, n_tile: int, l0: int) -> dict:
     # (d) the kernels at this path's shapes
     out["kernels"] = dist_kernels(runs[s8], quant)
     del quant
+    # phase 10 holds its build over a process group against this one
+    out["S8_graph"] = (runs[s8]["graph"], runs[s8]["dists"])
     for s in (1, s8):
         runs[s].pop("inputs")
         out[f"S{s}"] = {k: v for k, v in runs[s].items() if k not in ("graph", "dists")}
@@ -2224,6 +2249,121 @@ def phase_dist(x_np, q_np, seed: int, dev, n_tile: int, l0: int) -> dict:
     out["knn_graph"] = dict(n=len(x), k=10, beam=32, recall=rec, paper_target=0.95,
                             floor=DIST_KNN_FLOOR, launches=launches, **times)
     log("phase9 knn_graph", json.dumps(out["knn_graph"]))
+    return out
+
+
+def _mesh_search(sv, q, truth, beam: int, counter: str) -> dict:
+    """One search of ``q``: ids, recall@10, QPS and launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import recall_at_k
+
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = sv.search(q, k=10, beam=beam)
+    dt = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    check(launches[counter] > 0, f"{counter} not launched (beam {beam})")
+    return dict(ids=ids, recall_at_10=recall_at_k(ids, truth), qps=q.shape[0] / dt,
+                seconds=dt, launches=launches)
+
+
+def phase_mesh(x_np, q_np, full: dict, dist: dict, n_tile: int, l0: int) -> dict:
+    """Phase 10: the distributed build and sharded serving over a one-rank
+    NCCL process group (``launch.mesh.init_mesh``); see the module
+    docstring."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.serving import ShardedServingIndex
+    from repro_torch.launch import build_index as bi
+    from repro_torch.launch.mesh import init_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+        t0 = time.perf_counter()
+        mesh = init_mesh(DIST_SHARDS, "cuda", store=store, rank=0, world=1)
+        out["init_s"] = time.perf_counter() - t0
+        try:
+            check(mesh.group is not None and torch.distributed.get_backend() == "nccl",
+                  f"phase 10 mesh has no NCCL group: {mesh}")
+            # the first collective builds the communicator: timed on its own
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = mesh.psum([torch.ones(1, device=mesh.device)])
+            torch.cuda.synchronize()
+            out["communicator_s"] = time.perf_counter() - t0
+            check(float(one) == 1.0, "phase 10: a one-rank psum is not the identity")
+            log("phase10 group", json.dumps(dict(backend=torch.distributed.get_backend(),
+                                                 world=mesh.world,
+                                                 n_shards=mesh.n_shards, device=str(mesh.device),
+                                                 init_s=out["init_s"],
+                                                 communicator_s=out["communicator_s"])))
+
+            # (a) the distributed build over the group, against phase 9's
+            # S = 8 one-process build of the same points
+            p = bi.DistBuildParams(dim=x_np.shape[1], n_tile=n_tile, l0=l0)
+            run = _dist_run(np.ascontiguousarray(x_np[:n_tile]), q_np, None, mesh, p,
+                            mesh.device, "mesh_build",
+                            ("pairwise_distance", "rowwise_topk", "segmented_merge"),
+                            absent=("pairwise_distance_int8",), search=False, phase="phase10")
+            g9, d9 = dist["S8_graph"]
+            same = np.array_equal(run["graph"], g9) and np.array_equal(run["dists"], d9)
+            check(same, f"phase 10: the build over the group differs from phase 9's S = 8 "
+                  f"build in {int((run['graph'] != g9).sum())} slots")
+            p9 = dist[f"S{DIST_SHARDS}"]
+            out["build"] = {k: run[k] for k in ("wall_s", "tile_s", "final_prune_s", "stats",
+                                                "peak_device_bytes", "launches",
+                                                "mean_degree", "isolated")}
+            out["build"].update(identical_to_phase9=same, phase9_tile_s=p9["tile_s"],
+                                phase9_final_prune_s=p9["final_prune_s"],
+                                phase9_peak_device_bytes=p9["peak_device_bytes"])
+            log("phase10 build", json.dumps(out["build"]))
+            del run, g9, d9
+            torch.cuda.empty_cache()
+
+            # (b) phase 3's graph served at S = 8 over the group and in one
+            # process: identical ids at every beam
+            index, q = full["index"], np.ascontiguousarray(q_np[:MESH_QUERIES])
+            truth = full["truth"][:MESH_QUERIES]
+            out["serve"] = {}
+            for name, dtype in (("float32", None), ("int8", "int8")):
+                counter = "gather_distance_int8" if dtype == "int8" else "gather_distance"
+                svs, res = {}, {}
+                for how, kw in (("mesh", dict(mesh=mesh)),
+                                ("n_shards", dict(n_shards=DIST_SHARDS, device=mesh.device))):
+                    t0 = time.perf_counter()
+                    svs[how] = ShardedServingIndex.from_index(index, x_np, dtype=dtype, **kw)
+                    torch.cuda.synchronize()
+                    res[how] = dict(pack_s=time.perf_counter() - t0,
+                                    device_bytes=svs[how].device_bytes())
+                    svs[how].search(q[:100], k=10, beam=BEAMS[0])      # warm-up, untimed
+                # the packing that runs first alternates from beam to beam
+                for i, beam in enumerate(BEAMS):
+                    order = ("n_shards", "mesh") if i % 2 == 0 else ("mesh", "n_shards")
+                    got = {how: _mesh_search(svs[how], q, truth, beam, counter) for how in order}
+                    check(np.array_equal(got["mesh"]["ids"], got["n_shards"]["ids"]),
+                          f"phase 10 {name}: mesh ids differ from n_shards=8's at beam {beam}")
+                    for how, r in got.items():
+                        res[how][str(beam)] = {k: v for k, v in r.items() if k != "ids"}
+                        res[how][str(beam)]["ran_first"] = how == order[0]
+                del svs
+                torch.cuda.empty_cache()
+                res["ids_identical"] = True
+                out["serve"][name] = res
+                log("phase10 serve", name, json.dumps(res))
+        finally:
+            mesh.close()
+    # the launches of each path: the build, then each mesh search
+    out["launches"] = {"mesh_build": out["build"]["launches"],
+                       **{f"mesh_{name}_b{beam}": r["mesh"][str(beam)]["launches"]
+                          for name, r in out["serve"].items() for beam in BEAMS}}
     return out
 
 
@@ -2328,6 +2468,11 @@ def main() -> int:
     t0 = time.perf_counter()
     dist = phase_dist(x_np, q_np, args.seed, torch.device("cuda"), dist_tile(args.n), DIST_L0)
     log("phase9 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    mesh = phase_mesh(x_np, q_np, full, dist, dist_tile(args.n), DIST_L0)
+    log("phase10 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -2400,6 +2545,8 @@ def main() -> int:
         if name in p9_kernels:
             row.update(phase9_launches={k: v[counter] for k, v in p9.items()},
                        phase9_shapes={k: dist["kernels"][k] for k in p9_kernels[name]})
+        # phase 10: the build and the searches over the one-rank NCCL group
+        row.update(phase10_launches={k: v[counter] for k, v in mesh["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -339,23 +339,25 @@ def build(x, params: PiPNNParams | None = None, *, leaves: list[np.ndarray] | No
 
 
 def serving_index(index: PiPNNIndex, x, *, dtype=None, n_shards: int | None = None,
-                  device=None):
-    """The ``ServingIndex`` (or, with ``n_shards``, the
+                  mesh=None, device=None):
+    """The ``ServingIndex`` (or, with ``n_shards`` or ``mesh``, the
     ``ShardedServingIndex``) for ``(index, x)``, cached on the index: the
     first call packs graph, points and norms (and the int8 scales with
     ``dtype="int8"``) onto the device, later calls with the same ``x``,
-    graph object, dtype, shard count and device reuse it."""
+    graph object, dtype, shard count, mesh and device reuse it.  On a mesh
+    the device is the mesh's and ``device`` must be None."""
     from repro_torch.core.serving import ServingIndex
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else device
     key = (index.start, index.params.metric, None if dtype is None else str(dtype),
-           n_shards, str(dev))
+           n_shards, mesh, str(dev))
     cached = getattr(index, "_serving", None)
     if (cached is not None and getattr(index, "_serving_x", None) is x
             and getattr(index, "_serving_graph", None) is index.graph
             and getattr(index, "_serving_key", None) == key):
         return cached
-    sv = ServingIndex.from_index(index, x, dtype=dtype, device=dev, n_shards=n_shards)
+    sv = ServingIndex.from_index(index, x, dtype=dtype, device=dev, n_shards=n_shards,
+                                 mesh=mesh)
     index._serving, index._serving_x = sv, x
     index._serving_graph, index._serving_key = index.graph, key
     return sv
@@ -364,7 +366,7 @@ def serving_index(index: PiPNNIndex, x, *, dtype=None, n_shards: int | None = No
 def search(index: PiPNNIndex, x, queries, *, k: int = 10, beam: int = 32,
            batch: bool = True, expansions: int | None = None, iters: int | None = None,
            query_chunk: int | None = None, dtype=None, n_shards: int | None = None,
-           with_stats: bool = False, device=None):
+           mesh=None, with_stats: bool = False, device=None):
     """Query the index; returns [Q, k] neighbour ids (int64 numpy, -1-padded
     when fewer than ``k`` are found).
 
@@ -374,23 +376,25 @@ def search(index: PiPNNIndex, x, queries, *, k: int = 10, beam: int = 32,
     points (``torch.bfloat16``) or, with ``dtype="int8"``, serves the
     scalar-quantized packing.  ``n_shards`` serves through the sharded
     packing (``distributed.serving.ShardedServingIndex``, all shards on
-    ``device``).
+    ``device``), and ``mesh`` (a ``launch.mesh.ShardMesh``) through the
+    sharded packing spread over the mesh's ranks, each calling ``search``
+    alike and getting the same ids.
 
     ``batch=False`` is the pointer-chasing host oracle ``beam_search_np``,
     one query at a time on the host (``device`` is not used); it takes
     none of the serving options (``expansions``, ``iters``,
-    ``query_chunk``, ``dtype``, ``n_shards``, ``with_stats``) and raises
-    ``ValueError`` when one is given."""
+    ``query_chunk``, ``dtype``, ``n_shards``, ``mesh``, ``with_stats``) and
+    raises ``ValueError`` when one is given."""
     validate_search_params(k=k, beam=beam)
     if batch:
-        sv = serving_index(index, x, dtype=dtype, n_shards=n_shards, device=device)
+        sv = serving_index(index, x, dtype=dtype, n_shards=n_shards, mesh=mesh, device=device)
         return sv.search(queries, k=k, beam=beam,
                          expansions=4 if expansions is None else expansions,
                          iters=iters, query_chunk=query_chunk, with_stats=with_stats)
     if (with_stats or iters is not None or dtype is not None or expansions is not None
-            or query_chunk is not None or n_shards is not None):
+            or query_chunk is not None or n_shards is not None or mesh is not None):
         raise ValueError(
-            "with_stats / iters / dtype / expansions / query_chunk / n_shards are "
+            "with_stats / iters / dtype / expansions / query_chunk / n_shards / mesh are "
             "serving-path options; the batch=False host oracle expands one vertex per "
             "hop and does not take them")
     x_host = _as_host_f32(x)

@@ -18,7 +18,8 @@ reference's names (``beam_search.resolve_kernel_path``).
 ``from_graph(..., n_shards=S)`` / ``from_index(..., n_shards=S)`` pack a
 ``distributed.serving.ShardedServingIndex`` instead: S partition-aligned
 shards with a 1-hop halo, all on one device, their results merged across
-shards (the reference's ``mesh=``).
+shards; ``mesh=`` (a ``launch.mesh.ShardMesh``, the reference's ``mesh=``)
+spreads them over the mesh's ranks.
 """
 from __future__ import annotations
 
@@ -82,23 +83,23 @@ class ServingIndex:
 
     @classmethod
     def from_graph(cls, graph, x, start: int, *, metric: str = "l2", dtype=None,
-                   device=None, n_shards: int | None = None, **shard_kw):
+                   device=None, n_shards: int | None = None, mesh=None, **shard_kw):
         """Pack an adjacency matrix and its points (numpy arrays or tensors)
         onto ``device`` (default: the card, raising without one).
 
         ``dtype`` (e.g. ``torch.bfloat16``) downcasts the points copy;
         ``dtype="int8"`` (or ``torch.int8``, ``np.int8``) packs the
         scalar-quantized copy.  Either way the norms are computed from the
-        float32 points first.  ``n_shards`` packs a
+        float32 points first.  ``n_shards`` or ``mesh`` packs a
         ``distributed.serving.ShardedServingIndex`` instead, and the
         shard-only options (``router``, ``n_probes``, ``seed``, ``halo``)
-        pass through to it; without ``n_shards`` they raise ``TypeError``."""
-        if n_shards is not None:
+        pass through to it; without either they raise ``TypeError``."""
+        if n_shards is not None or mesh is not None:
             from repro_torch.distributed.serving import ShardedServingIndex
 
             return ShardedServingIndex.from_graph(graph, x, start, n_shards=n_shards,
-                                                  metric=metric, dtype=dtype, device=device,
-                                                  **shard_kw)
+                                                  mesh=mesh, metric=metric, dtype=dtype,
+                                                  device=device, **shard_kw)
         if shard_kw:
             raise TypeError(f"single-device serving does not accept {sorted(shard_kw)} "
                             "(options of the sharded packing, n_shards=)")
@@ -115,11 +116,12 @@ class ServingIndex:
 
     @classmethod
     def from_index(cls, index, x, *, dtype=None, device=None, n_shards: int | None = None,
-                   **shard_kw):
+                   mesh=None, **shard_kw):
         """Pack a ``PiPNNIndex`` over its dataset ``x`` (sharded with
-        ``n_shards``)."""
+        ``n_shards`` or ``mesh``)."""
         return cls.from_graph(index.graph, x, index.start, metric=index.params.metric,
-                              dtype=dtype, device=device, n_shards=n_shards, **shard_kw)
+                              dtype=dtype, device=device, n_shards=n_shards, mesh=mesh,
+                              **shard_kw)
 
     def search(self, queries, *, k: int = 10, beam: int = 32, expansions: int = 4,
                iters: int | None = None, early_exit: bool = True,

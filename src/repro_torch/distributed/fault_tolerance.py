@@ -10,6 +10,14 @@ package).
   * ``RollingPercentile`` is the serving loop's SLO signal: request
     latencies stream in and the loop reads ``percentile(99)``.
 
+Each of these is one process's state.  The sharded index's health mask
+(``distributed.serving.ShardedServingIndex``) is the state ranks share: on
+a mesh of several ranks every rank holds it whole and changes it alike
+(``mark_shard_down`` / ``probe_shard`` with the same arguments), so every
+rank raises ``AllShardsDown`` together, before any collective.  A rank
+that dies is not survived: the shard failures here are simulated, as in
+the reference.
+
 The reference's ``resume_or_init`` restores a checkpoint; the port has no
 checkpoint module yet, so it is not here.
 """

@@ -10,15 +10,23 @@ shard by shard and merged (counterpart of ``repro/distributed/serving.py``).
     keep whichever of their edges land in the shard.  Each shard has its
     own entry point (the owned member nearest the global entry) and a
     ``gids`` map back to global ids; shards pad to the largest row count
-    ``m``, so the packing is stacked ``[S, m, ...]`` tensors.
-  * **All shards on one device.**  The reference puts one shard on each
-    device of a mesh; here ``n_shards`` shards live in one process on one
-    card, and ``search`` runs the unchanged multi-expansion engine
-    (``beam_search._beam_search_multi``) over each shard's ``[m, ...]``
-    slice in turn, so the gather kernel is launched once a step for every
-    shard that serves queries.  A shard searches only the queries routed
-    to it; the merged result is the reference's, which searches every
-    shard and masks the rest out.
+    ``m``, so a rank's packing is stacked ``[L, m, ...]`` tensors.
+  * **The mesh** (``launch.mesh.ShardMesh``).  The reference puts one
+    shard on each device of a jax mesh.  Here each of W ranks holds the
+    ``L = S / W`` shards ``mesh.local`` on its device (``n_shards=S``
+    alone: all S in this process, W = 1).  Every rank computes the same
+    ownership and halo on the host and packs only its own shards; a
+    search runs the unchanged multi-expansion engine
+    (``beam_search._beam_search_multi``) over each local shard's
+    ``[m, ...]`` slice in turn, so the gather kernel is launched once a
+    step for every local shard that serves queries.  A shard searches
+    only the queries routed to it; the merged result is the reference's,
+    which searches every shard and masks the rest out.  Across ranks,
+    every rank gathers the [L, Q, beam] blocks and the telemetry of all
+    shards (``mesh.all_gather``) and merges them itself, so ids and
+    telemetry are the same on every rank.  The SPMD contract: every rank
+    calls ``search``, ``mark_shard_down`` / ``mark_shard_up`` and
+    ``probe_shard`` alike, with the same arguments.
   * **Routing.**  ``router="all"`` sends every query to every healthy
     shard (the recall-parity configuration); ``router="leaders"`` to its
     ``n_probes`` nearest healthy leaders.
@@ -29,12 +37,14 @@ shard by shard and merged (counterpart of ``repro/distributed/serving.py``).
     folds the shards' beams into one [Q, k] block with it.
   * **Health.**  ``mark_shard_down`` tombstones a shard (masked out of
     every merge, never probed by the leaders router); ``probe_shard``
-    re-admits it when a probe search succeeds.  With every shard down a
-    search raises ``AllShardsDown``.
+    re-admits it when a probe search succeeds.  The mask is host state
+    that every rank holds whole.  With every shard down a search raises
+    ``AllShardsDown`` on every rank, before any collective; a tombstoned
+    or unrouted local shard still takes part in the gather, with (-1,
+    +inf) entries.
 
-``ServingIndex.from_graph(..., n_shards=)``, ``pipnn.search(n_shards=)`` and
-``launch.serve.Retriever(n_shards=)`` route here.  Serving across cards
-over ``torch.distributed`` is not ported.
+``ServingIndex.from_graph(..., n_shards= | mesh=)``, ``pipnn.search(n_shards=
+| mesh=)`` and ``launch.serve.Retriever(n_shards= | mesh=)`` route here.
 """
 from __future__ import annotations
 
@@ -49,8 +59,8 @@ from repro_torch.core.leader_assign import leader_assign
 from repro_torch.core.metrics import point_norms
 from repro_torch.core.serving import _is_int8, serve_chunks
 from repro_torch.core.transfers import to_device
-from repro_torch.device import resolve_device
 from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
+from repro_torch.launch.mesh import ShardMesh, make_local_mesh
 
 ROUTERS = ("all", "leaders")
 
@@ -100,26 +110,31 @@ def _host(a, dtype) -> np.ndarray:
 
 @dataclasses.dataclass
 class ShardedServingIndex:
-    """A PiPNN index packed as ``S`` partition-aligned shards on one device.
+    """A PiPNN index packed as ``S`` partition-aligned shards, this rank's
+    ``L`` of them (``mesh.local``; all S in one process) on its device.
 
-    Every shard tensor is stacked on a leading shard axis ``[S, ...]``;
-    ``-1`` pads the gids and the local graph ids.  Not frozen and without
-    ``__slots__``: ``testing.faults.inject_faults`` patches ``search`` on
-    the instance."""
+    Every shard tensor is stacked on a leading shard axis ``[L, ...]``;
+    ``-1`` pads the gids and the local graph ids.  The leaders, the owned
+    and live row counts and the health mask cover all S shards.  Not
+    frozen and without ``__slots__``: ``testing.faults.inject_faults``
+    patches ``search`` on the instance."""
 
-    gids: torch.Tensor         # [S, m] int32 global ids, -1 pad
-    graph: torch.Tensor        # [S, m, R] int32 local neighbour ids, -1 pad
-    points: torch.Tensor       # [S, m, d] float32, downcast, or int8
-    norms: torch.Tensor        # [S, m] float32 point norms (before any downcast)
-    starts: torch.Tensor       # [S] int32 per-shard local entry point
+    gids: torch.Tensor         # [L, m] int32 global ids, -1 pad
+    graph: torch.Tensor        # [L, m, R] int32 local neighbour ids, -1 pad
+    points: torch.Tensor       # [L, m, d] float32, downcast, or int8
+    norms: torch.Tensor        # [L, m] float32 point norms (before any downcast)
+    starts: torch.Tensor       # [L] int32 per-shard local entry point
     leaders: torch.Tensor      # [S, d] float32 shard leader vectors (router)
     metric: str = "l2"
-    scales: torch.Tensor | None = None   # [S, m] float32 scales (int8), 1.0 at pads
+    scales: torch.Tensor | None = None   # [L, m] float32 scales (int8), 1.0 at pads
     router: str = "all"
     n_probes: int = 2
     n_points: int = 0          # dataset size (each point owned by one shard)
     owned: np.ndarray | None = None    # [S] owned (member) row counts
+    live: np.ndarray | None = None     # [S] live (member + ghost) row counts
     health: np.ndarray | None = None   # [S] bool shard health mask (None = all)
+    # the shards' mesh; None: all of them here (a one-process mesh)
+    mesh: ShardMesh | None = dataclasses.field(default=None, repr=False, compare=False)
     # host copy of ``starts``, recorded by from_graph, so a search reads no
     # entry point back from the device
     start_ids: tuple[int, ...] | None = dataclasses.field(default=None, repr=False,
@@ -138,7 +153,11 @@ class ShardedServingIndex:
     # ------------------------------------------------------------- sizing --
     @property
     def n_shards(self) -> int:
-        return self.gids.shape[0]
+        return self._mesh.n_shards
+
+    @property
+    def _mesh(self) -> ShardMesh:
+        return self.mesh if self.mesh is not None else ShardMesh(self.gids.shape[0])
 
     @property
     def shard_capacity(self) -> int:
@@ -154,36 +173,38 @@ class ShardedServingIndex:
         return self.points.device
 
     def device_bytes(self, per_shard: bool = False, breakdown: bool = False):
-        """Device-resident footprint of the whole packing, or (with
-        ``per_shard=True``) of one shard's slice.  ``breakdown=True`` also
-        splits the row-indexed bytes into member / ghost / pad shares
-        (``halo_stats``)."""
+        """Device-resident footprint of this rank's packing (the whole
+        packing in one process), or (with ``per_shard=True``) of one of its
+        shards' slices.  ``breakdown=True`` also splits the row-indexed
+        bytes into member / ghost / pad shares (``halo_stats``)."""
         parts = (self.gids, self.graph, self.points, self.norms, self.starts,
                  self.leaders) + (() if self.scales is None else (self.scales,))
+        n_local = self._mesh.n_local
         total = sum(t.numel() * t.element_size() for t in parts)
-        total = total // self.n_shards if per_shard else total
+        total = total // n_local if per_shard else total
         if not breakdown:
             return total
         hs = self.halo_stats()
-        scale = 1.0 / self.n_shards if per_shard else 1.0
+        mine = list(self._mesh.local)
+        scale = 1.0 / n_local if per_shard else 1.0
         return {"total": total,
-                "member_bytes": int(hs["member_bytes"].sum() * scale),
-                "ghost_bytes": int(hs["ghost_bytes"].sum() * scale),
-                "pad_bytes": int(hs["pad_bytes"].sum() * scale),
+                "member_bytes": int(hs["member_bytes"][mine].sum() * scale),
+                "ghost_bytes": int(hs["ghost_bytes"][mine].sum() * scale),
+                "pad_bytes": int(hs["pad_bytes"][mine].sum() * scale),
                 "halo_fraction": hs["halo_fraction"]}
 
     def halo_stats(self) -> dict[str, Any]:
-        """Member / ghost / pad rows per shard (``members``, ``ghosts``,
-        ``pads``), their bytes at ``row_bytes`` a row (gids + graph + points
-        + norms [+ scales]), and ``halo_fraction``: the ghost rows' share of
-        all live rows (0.0 means no replication)."""
+        """Member / ghost / pad rows of each of the S shards (``members``,
+        ``ghosts``, ``pads``), their bytes at ``row_bytes`` a row (gids +
+        graph + points + norms [+ scales]), and ``halo_fraction``: the ghost
+        rows' share of all live rows (0.0 means no replication)."""
         if self.owned is None:
             raise ValueError("halo_stats needs the owned-row counts recorded by "
                              "from_graph; this packing was constructed without them")
-        gids = self.gids.cpu().numpy()
         m = self.shard_capacity
         members = np.asarray(self.owned, np.int64)
-        live = (gids >= 0).sum(axis=1).astype(np.int64)
+        live = (np.asarray(self.live, np.int64) if self.live is not None
+                else (self.gids.cpu().numpy() >= 0).sum(axis=1).astype(np.int64))
         ghosts = live - members
         pads = m - live
         r, d = self.graph.shape[2], self.points.shape[2]
@@ -198,12 +219,16 @@ class ShardedServingIndex:
 
     # ------------------------------------------------------------ packing --
     @classmethod
-    def from_graph(cls, graph, x, start: int, *, n_shards: int, metric: str = "l2",
-                   dtype=None, router: str = "all", n_probes: int = 2, seed: int = 0,
-                   halo: bool = True, device=None) -> "ShardedServingIndex":
+    def from_graph(cls, graph, x, start: int, *, n_shards: int | None = None,
+                   mesh: ShardMesh | None = None, metric: str = "l2", dtype=None,
+                   router: str = "all", n_probes: int = 2, seed: int = 0, halo: bool = True,
+                   device=None) -> "ShardedServingIndex":
         """Cut an adjacency matrix and its dataset (numpy arrays or tensors)
         into ``n_shards`` shards on ``device`` (default: the card, raising
-        without one).
+        without one), or into ``mesh.n_shards`` shards of which this rank
+        packs ``mesh.local`` on ``mesh.device`` (``device`` must then be
+        None, and ``n_shards`` None or the mesh's).  On a mesh every rank
+        passes the same arguments.
 
         Leaders are ``n_shards`` points drawn with ``seed``; every point
         joins its nearest leader (ties to the lower leader index).  With
@@ -218,10 +243,16 @@ class ShardedServingIndex:
         if router == "leaders" and int(n_probes) <= 0:
             # an empty probe set would mask every shard out of the merge
             raise ValueError(f"router='leaders' needs n_probes >= 1, got {n_probes}")
-        s = int(n_shards)
-        if s < 1:
-            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
-        dev = resolve_device(device)
+        if mesh is None:
+            if n_shards is None:
+                raise ValueError("from_graph needs n_shards or mesh")
+            if int(n_shards) < 1:
+                raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+            mesh = make_local_mesh(int(n_shards), device)
+        elif device is not None or (n_shards is not None and int(n_shards) != mesh.n_shards):
+            raise ValueError(f"a mesh of {mesh.n_shards} shards on {mesh.device} does not take "
+                             f"n_shards={n_shards!r}, device={device!r}")
+        s, dev, mine = mesh.n_shards, mesh.device, list(mesh.local)
         x = _host(x, np.float32)
         graph = _host(graph, np.int32)
         n, d = x.shape
@@ -247,19 +278,22 @@ class ShardedServingIndex:
             else:
                 ghosts = np.empty(0, np.int64)
             rows.append(np.concatenate([mem, ghosts]))
-        m = max(1, max(len(ridx) for ridx in rows))
-        gids = np.full((s, m), -1, np.int32)
-        graph_s = np.full((s, m, r), -1, np.int32)
+        n_live = np.array([len(ridx) for ridx in rows], np.int64)
+        m = max(1, int(n_live.max()))
+        # this rank's shards only, stacked [L, m, ...]
+        gids = np.full((len(mine), m), -1, np.int32)
+        graph_s = np.full((len(mine), m, r), -1, np.int32)
         lookup = np.full(n, -1, np.int64)
-        for i, ridx in enumerate(rows):
+        for j, i in enumerate(mine):
+            ridx = rows[i]
             c = len(ridx)
-            gids[i, :c] = ridx
+            gids[j, :c] = ridx
             lookup[:] = -1
             lookup[ridx] = np.arange(c)
             ga = graph[ridx]
             # member rows: every endpoint is in the shard by the halo; ghost
             # rows keep the edges that land in the shard
-            graph_s[i, :c] = np.where(ga >= 0, lookup[np.maximum(ga, 0)], -1)
+            graph_s[j, :c] = np.where(ga >= 0, lookup[np.maximum(ga, 0)], -1)
         # the rows gathered on the device; norms from the float32 points
         # before any downcast or quantization
         gids_t = torch.from_numpy(gids).to(dev)
@@ -283,20 +317,21 @@ class ShardedServingIndex:
         # per-shard entry: the owned member nearest the global entry point
         # (owned rows come first, so the argmin's position is its local id)
         dstart = _dist_to_point(x, x[start], metric)
-        starts_local = np.zeros(s, np.int32)
-        for i in range(s):
+        starts_local = np.zeros(len(mine), np.int32)
+        for j, i in enumerate(mine):
             mem = rows[i][: owned[i]]
             if len(mem):
-                starts_local[i] = np.argmin(dstart[mem])
+                starts_local[j] = np.argmin(dstart[mem])
         return cls(gids=gids_t, graph=torch.from_numpy(graph_s).to(dev),
                    points=pts_s.contiguous(), norms=norms_s.contiguous(),
                    starts=torch.from_numpy(starts_local).to(dev), leaders=leaders_t,
                    metric=metric, scales=None if scales_s is None else scales_s.contiguous(),
-                   router=router, n_probes=int(n_probes), n_points=n, owned=owned,
-                   start_ids=tuple(int(v) for v in starts_local))
+                   router=router, n_probes=int(n_probes), n_points=n, owned=owned, live=n_live,
+                   mesh=mesh, start_ids=tuple(int(v) for v in starts_local))
 
     @classmethod
-    def from_index(cls, index, x, *, n_shards: int, dtype=None, **kw) -> "ShardedServingIndex":
+    def from_index(cls, index, x, *, n_shards: int | None = None, dtype=None,
+                   **kw) -> "ShardedServingIndex":
         return cls.from_graph(index.graph, x, index.start, n_shards=n_shards,
                               metric=index.params.metric, dtype=dtype, **kw)
 
@@ -390,20 +425,23 @@ class ShardedServingIndex:
         """Every shard's beam over the queries routed to it, ids mapped to
         global ids: (ids [S, Q, beam] int32, dists [S, Q, beam], hops [S, Q],
         dist_comps [S, Q], converged [S, Q]).  Entries of a shard that does
-        not serve a query are (-1, +inf), 0 hops and comps, converged."""
-        s, nq = self.n_shards, queries.shape[0]
+        not serve a query are (-1, +inf), 0 hops and comps, converged.  This
+        rank searches its own shards; across ranks every rank then gathers
+        all S shards' blocks, whatever its shards served."""
+        mesh, nq = self._mesh, queries.shape[0]
+        n_local = mesh.n_local
         dev = queries.device
         inf = torch.full((), float("inf"), device=dev)
-        ids_s = torch.full((s, nq, beam), -1, dtype=torch.int32, device=dev)
-        ds_s = torch.full((s, nq, beam), float("inf"), dtype=torch.float32, device=dev)
-        hops_s = torch.zeros((s, nq), dtype=torch.int32, device=dev)
-        comps_s = torch.zeros((s, nq), dtype=torch.int32, device=dev)
-        conv_s = torch.ones((s, nq), dtype=torch.bool, device=dev)
+        ids_s = torch.full((n_local, nq, beam), -1, dtype=torch.int32, device=dev)
+        ds_s = torch.full((n_local, nq, beam), float("inf"), dtype=torch.float32, device=dev)
+        hops_s = torch.zeros((n_local, nq), dtype=torch.int32, device=dev)
+        comps_s = torch.zeros((n_local, nq), dtype=torch.int32, device=dev)
+        conv_s = torch.ones((n_local, nq), dtype=torch.bool, device=dev)
         health = self._health_np()
         if self.start_ids is None:
             self.start_ids = tuple(self.starts.tolist())
         starts = self.start_ids
-        for i in range(s):
+        for j, i in enumerate(mesh.local):
             rows = None
             if not health[i]:
                 continue
@@ -415,17 +453,20 @@ class ShardedServingIndex:
                     rows = None
             q = queries if rows is None else queries[rows]
             ids, ds, hops, comps, conv = _bs._beam_search_multi(
-                self.graph[i], self.points[i], self.norms[i], q, starts[i], beam=beam,
+                self.graph[j], self.points[j], self.norms[j], q, starts[j], beam=beam,
                 iters=iters, metric=self.metric, expansions=expansions,
-                early_exit=early_exit, scales=None if self.scales is None else self.scales[i],
+                early_exit=early_exit, scales=None if self.scales is None else self.scales[j],
                 plain=plain)
-            gid = torch.where(ids >= 0, self.gids[i][ids.clamp_min(0).long()], -1)
+            gid = torch.where(ids >= 0, self.gids[j][ids.clamp_min(0).long()], -1)
             # an empty shard's pad entry point carries gid -1: +inf drops it
             ds = torch.where(gid >= 0, ds, inf)
             at = slice(None) if rows is None else rows
-            ids_s[i, at], ds_s[i, at] = gid, ds
-            hops_s[i, at], comps_s[i, at], conv_s[i, at] = hops, comps, conv
-        return ids_s, ds_s, hops_s, comps_s, conv_s
+            ids_s[j, at], ds_s[j, at] = gid, ds
+            hops_s[j, at], comps_s[j, at], conv_s[j, at] = hops, comps, conv
+        blocks = (ids_s, ds_s, hops_s, comps_s, conv_s)
+        if mesh.group is not None:
+            blocks = tuple(mesh.all_gather([b]) for b in blocks)
+        return blocks
 
     def search(self, queries, *, k: int = 10, beam: int = 32, expansions: int = 4,
                iters: int | None = None, early_exit: bool = True,

@@ -20,16 +20,18 @@ stages:
 Everything is static-shape: routing uses per-destination capacities with
 slack (``distributed.routing.group_by_capacity``) and drops overflow.
 
-**The mesh is ``n_shards``: all S shards in one process on one device.**
-Each superstep runs its per-shard bodies shard after shard, and the
-collectives of the reference's ``shard_map`` are the four functions
-``all_gather`` (a concatenation over shards), ``all_to_all`` (the
-transpose of the shard grid: sender ``src``'s ``[S_dst, cap, ...]`` buffer
-becomes receiver ``dst``'s ``[S_src, cap, ...]``), ``psum`` (a sum) and the
-body's ``me`` argument (``axis_index``).  They are the only places shards
-meet, so a multi-card build swaps them for
-``torch.distributed.all_gather_into_tensor`` / ``all_to_all_single`` /
-``all_reduce`` without touching the bodies.
+**The mesh** (``launch.mesh.ShardMesh``) gives each of W ranks the
+contiguous block of ``L = S / W`` shards ``mesh.local``; every step and
+``build_distributed`` take a mesh or, as shorthand, ``n_shards`` (all S
+shards in this process, ``launch.mesh.make_local_mesh``).  A rank runs
+its shards' bodies one after another, holds its rows of the tile (rows
+``[rank*L*n_loc, (rank+1)*L*n_loc)``) and of the reservoir, and meets the
+other shards only in the mesh's ``all_gather``, ``all_to_all`` and
+``psum``: list functions in one process, ``torch.distributed``
+collectives (NCCL on the card, gloo on the CPU) across processes.  The
+body's ``me`` argument is the reference's ``axis_index``.  Every rank
+draws the same hyperplanes and level-0 leaders and gets the whole graph
+back.
 
 Kernel routes: level 0 and level 1 run ``core.leader_assign.leader_assign(
 use_kernels=True)`` (the ``pairwise_distance`` and ``rowwise_topk`` kernels
@@ -54,8 +56,7 @@ fresh reservoir, as the reference does: tiles are never merged, so a build
 of more than one tile is ``ceil(n / n_tile)`` disconnected graphs.
 
 The reference's AOT lowering (``mesh_axes``, ``lower_build_step``,
-``lower_final_prune_step``) and ``launch/mesh.py`` belong to XLA and a jax
-mesh and have no counterpart here.
+``lower_final_prune_step``) belongs to XLA and has no counterpart here.
 """
 from __future__ import annotations
 
@@ -70,11 +71,12 @@ from repro_torch.core.hashprune import (INVALID_ID, Reservoir, merge_flat_edges,
 from repro_torch.core.leader_assign import leader_assign
 from repro_torch.core.metrics import pairwise
 from repro_torch.core.robust_prune import prune_reservoir_block
-from repro_torch.device import resolve_device
 from repro_torch.distributed.routing import group_by_capacity
 from repro_torch.kernels.distance import pairwise_distance_int8
 from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
 from repro_torch.kernels.topk import rowwise_topk, stable_argsort
+from repro_torch.launch.mesh import (ShardMesh, all_gather, all_to_all,  # noqa: F401
+                                     make_local_mesh, psum)
 
 INF = float("inf")
 
@@ -149,32 +151,9 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-# ---------------------------------------------------------------------------
-# The exchanges: every place where shards meet
-# ---------------------------------------------------------------------------
-
-def all_gather(parts: list[torch.Tensor]) -> torch.Tensor:
-    """``lax.all_gather(tiled=True)`` over dim 0: the shards' parts in
-    shard order."""
-    return torch.cat(parts, 0)
-
-
-def all_to_all(sends: list[torch.Tensor]) -> list[torch.Tensor]:
-    """``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``:
-    ``sends[src]`` is [S_dst, cap, ...]; receiver ``dst`` gets
-    [S_src, cap, ...] with row ``src`` = ``sends[src][dst]``."""
-    return [torch.stack([s[dst] for s in sends]) for dst in range(len(sends))]
-
-
-def psum(parts: list[torch.Tensor]) -> torch.Tensor:
-    """``lax.psum``: the shards' values summed."""
-    return torch.stack(parts).sum(0, dtype=parts[0].dtype)
-
-
-def _exchange(per_shard: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
-    """``all_to_all`` of each payload of a per-shard payload list."""
-    cols = [all_to_all([pay[i] for pay in per_shard]) for i in range(len(per_shard[0]))]
-    return [[col[dst] for col in cols] for dst in range(len(per_shard))]
+def _as_mesh(mesh: ShardMesh | int) -> ShardMesh:
+    """A mesh, or ``n_shards`` as all of them in this process."""
+    return mesh if isinstance(mesh, ShardMesh) else ShardMesh(int(mesh))
 
 
 # ---------------------------------------------------------------------------
@@ -372,16 +351,18 @@ def _fold(me: int, res: Reservoir, r_edges, r_ok, p: DistBuildParams, dv: dict):
                 torch.where(r_ok, m_d, INF))
 
 
-def make_tile_step(n_shards: int, p: DistBuildParams):
+def make_tile_step(mesh: ShardMesh | int, p: DistBuildParams):
     """Returns ``tile_step(points, hyperplanes, reservoir) -> (reservoir,
-    stats)``.
+    stats)`` on ``mesh`` (or ``n_shards`` in this process).
 
-    ``points`` [n_tile, d] and the reservoir ([n_tile, l_max] each) are
-    cut into ``n_shards`` row blocks, one a shard; ``hyperplanes`` [m, d]
-    are every shard's.  ``stats`` is int32 [edges received, replicas
-    received, dispatch drops], summed over shards.  Every tensor stays on
-    ``points``' device."""
-    S = n_shards
+    ``points`` and the reservoir ([rows, l_max] each) are this rank's row
+    block of the tile, ``L * n_loc`` rows (the whole [n_tile, ...] tile in
+    one process), cut into one block a local shard; ``hyperplanes`` [m, d]
+    are every shard's.  Returns this rank's reservoir rows and ``stats``,
+    int32 [edges received, replicas received, dispatch drops] summed over
+    all S shards.  Every tensor stays on ``points``' device."""
+    mesh = _as_mesh(mesh)
+    S, local = mesh.n_shards, mesh.local
     dv = p.derived(S)
     n_loc, nb_loc = dv["n_loc"], dv["nb_loc"]
     lead_stride = n_loc // nb_loc
@@ -390,38 +371,38 @@ def make_tile_step(n_shards: int, p: DistBuildParams):
         pts = points.to(torch.float32)
         hp = (hyperplanes if isinstance(hyperplanes, torch.Tensor)
               else torch.tensor(np.asarray(hyperplanes))).to(pts.device, torch.float32)
-        xs = [pts[me * n_loc:(me + 1) * n_loc] for me in range(S)]
+        rows = [slice(j * n_loc, (j + 1) * n_loc) for j in range(len(local))]
+        xs = [pts[r] for r in rows]
         sks = [_sketch.sketch(x, hp) for x in xs]                        # [n_loc, m]
-        leaders0 = all_gather([x[::lead_stride][:nb_loc] for x in xs])   # [l0, d]
+        leaders0 = mesh.all_gather([x[::lead_stride][:nb_loc] for x in xs])   # [l0, d]
 
-        sent = [_dispatch(me, xs[me], sks[me], leaders0, p, dv, S) for me in range(S)]
+        sent = [_dispatch(me, x, sk, leaders0, p, dv, S) for me, x, sk in zip(local, xs, sks)]
         del sks
         drops = [s[2] for s in sent]
-        recv = _exchange([s[0] for s in sent])
-        recv_valid = all_to_all([s[1] for s in sent])
+        recv = mesh.exchange([s[0] for s in sent])
+        recv_valid = mesh.all_to_all([s[1] for s in sent])
         del sent
         recv = [[x.reshape((-1,) + x.shape[2:]) for x in r] for r in recv]
         recv_valid = [v.reshape(-1) for v in recv_valid]
         n_replicas = [v.sum(dtype=torch.int32) for v in recv_valid]
 
         routed = []
-        for me in range(S):
-            routed.append(_leaf_edges(me, recv[me], recv_valid[me], p, dv, S))
-            recv[me] = None
-        r_edges = _exchange([r[0] for r in routed])
-        r_ok = all_to_all([r[1] for r in routed])
+        for j, me in enumerate(local):
+            routed.append(_leaf_edges(me, recv[j], recv_valid[j], p, dv, S))
+            recv[j] = None
+        r_edges = mesh.exchange([r[0] for r in routed])
+        r_ok = mesh.all_to_all([r[1] for r in routed])
         del routed
 
         merged, n_edges = [], []
-        for me in range(S):
-            rows = slice(me * n_loc, (me + 1) * n_loc)
-            ok = r_ok[me].reshape(-1)
-            merged.append(_fold(me, Reservoir(res.ids[rows], res.hashes[rows],
-                                              res.dists[rows]), r_edges[me], ok, p, dv))
+        for j, me in enumerate(local):
+            ok = r_ok[j].reshape(-1)
+            merged.append(_fold(me, Reservoir(res.ids[rows[j]], res.hashes[rows[j]],
+                                              res.dists[rows[j]]), r_edges[j], ok, p, dv))
             n_edges.append(ok.sum(dtype=torch.int32))
-            r_edges[me] = None
-        stats = psum([torch.stack([e, r, d.to(torch.int32)])
-                      for e, r, d in zip(n_edges, n_replicas, drops)])
+            r_edges[j] = None
+        stats = mesh.psum([torch.stack([e, r, d.to(torch.int32)])
+                           for e, r, d in zip(n_edges, n_replicas, drops)])
         return Reservoir(*(torch.cat([m[i] for m in merged]) for i in range(3))), stats
 
     return tile_step
@@ -431,47 +412,49 @@ def make_tile_step(n_shards: int, p: DistBuildParams):
 # Final prune superstep (request/response vector exchange + RobustPrune)
 # ---------------------------------------------------------------------------
 
-def make_final_prune_step(n_shards: int, p: DistBuildParams):
+def make_final_prune_step(mesh: ShardMesh | int, p: DistBuildParams):
     """Returns ``final_prune_step(points, res_ids, res_dists) -> (graph,
-    dists)``, [n_tile, max_deg] each, on tile-local ids cut into
-    ``n_shards`` row blocks as the tile step cuts them."""
-    S = n_shards
+    dists)`` on ``mesh`` (or ``n_shards`` in this process): this rank's
+    row block of the tile and its reservoir in, as the tile step takes
+    them, on tile-local ids; its [rows, max_deg] rows of the graph out."""
+    mesh = _as_mesh(mesh)
+    S, local = mesh.n_shards, mesh.local
     dv = p.derived(S)
     n_loc = dv["n_loc"]
 
     def final_prune_step(points, res_ids, res_dists):
         pts = points.to(torch.float32)
         dev = pts.device
-        rows = [slice(me * n_loc, (me + 1) * n_loc) for me in range(S)]
+        rows = [slice(j * n_loc, (j + 1) * n_loc) for j in range(len(local))]
         # requests: each reservoir slot's candidate id, grouped by its owner
         reqs = []
-        for me in range(S):
-            flat_ids = res_ids[rows[me]].reshape(-1)          # [n_loc*l_max]
+        for j in range(len(local)):
+            flat_ids = res_ids[rows[j]].reshape(-1)           # [n_loc*l_max]
             valid = flat_ids != INVALID_ID
             owner = torch.where(valid, torch.div(flat_ids, n_loc, rounding_mode="floor"), S)
             slot = torch.arange(n_loc * p.l_max, dtype=torch.int32, device=dev)
             reqs.append(group_by_capacity(owner, valid, S, dv["cap_req"], [flat_ids, slot]))
-        r_cand = all_to_all([r[0][0] for r in reqs])           # [S, capR]
-        r_ok = all_to_all([r[1] for r in reqs])
+        r_cand = mesh.all_to_all([r[0][0] for r in reqs])     # [S, capR]
+        r_ok = mesh.all_to_all([r[1] for r in reqs])
         # responses: the owner's vectors for each request it received
         resp = []
-        for me in range(S):
-            lidx = (r_cand[me] - me * n_loc).clamp(0, n_loc - 1).long()
-            r_vecs = pts[rows[me]][lidx]                      # [S, capR, d]
-            resp.append(torch.where(r_ok[me][..., None], r_vecs, torch.zeros((), device=dev)))
+        for j, me in enumerate(local):
+            lidx = (r_cand[j] - me * n_loc).clamp(0, n_loc - 1).long()
+            r_vecs = pts[rows[j]][lidx]                       # [S, capR, d]
+            resp.append(torch.where(r_ok[j][..., None], r_vecs, torch.zeros((), device=dev)))
         del r_cand, r_ok
         # slice s of a receiver's buffer answers its own requests to owner s
-        b_vecs = all_to_all(resp)
+        b_vecs = mesh.all_to_all(resp)
         del resp
 
         g_out, d_out = [], []
-        for me in range(S):
-            (_, s_slot), s_ok = reqs[me]
+        for j in range(len(local)):
+            (_, s_slot), s_ok = reqs[j]
             gat = torch.zeros((n_loc * p.l_max, p.dim), dtype=torch.float32, device=dev)
-            gat[s_slot[s_ok].long()] = b_vecs[me][s_ok]
-            b_vecs[me] = None
+            gat[s_slot[s_ok].long()] = b_vecs[j][s_ok]
+            b_vecs[j] = None
             cand_vecs = gat.reshape(n_loc, p.l_max, p.dim)
-            ids, dists = res_ids[rows[me]], res_dists[rows[me]]
+            ids, dists = res_ids[rows[j]], res_dists[rows[j]]
             for s in range(0, n_loc, p.prune_chunk):
                 vecs = cand_vecs[s:s + p.prune_chunk]
                 # d_cc from the routed vectors; the shared prune block keeps,
@@ -509,19 +492,33 @@ def useful_flops(n_points: int, dim: int, p: DistBuildParams | None = None) -> f
     return 2.0 * n * per_point * p.dim
 
 
-def build_distributed(x: np.ndarray, n_shards: int, p: DistBuildParams, *, seed: int = 0,
-                      final_prune: bool = True, hyperplanes=None, device=None):
-    """Runnable distributed build over ``n_shards`` shards on one device.
+def build_distributed(x: np.ndarray, mesh: ShardMesh | int, p: DistBuildParams, *,
+                      seed: int = 0, final_prune: bool = True, hyperplanes=None, device=None):
+    """Runnable distributed build over ``mesh``, or over ``n_shards``
+    shards in this process on ``device`` (default: the card, raising
+    without one).  On a mesh the tensors live on ``mesh.device`` and
+    ``device`` must be None; every rank passes the same ``x`` and
+    arguments and gets the same result.
 
     Streams ``x`` tile by tile through the tile step, each tile from a
     fresh reservoir (tiles are not merged), then runs the final-prune
-    step on it.  The hyperplanes are ``hyperplanes`` ([m_bits, dim]) or
-    ``sketch.make_hyperplanes(seed, ...)``.  ``device`` defaults to the
-    card and raises without one.  Returns numpy (graph [n, max_deg] int32
-    with -1 padding, dists [n, max_deg] float32 with +inf padding)."""
-    dev = resolve_device(device)
+    step on it; each rank moves only its row block of a tile to its
+    device, and one ``all_gather`` a tile assembles the graph.  The
+    hyperplanes are ``hyperplanes`` ([m_bits, dim]) or
+    ``sketch.make_hyperplanes(seed, ...)``.  Returns numpy (graph [n,
+    max_deg] int32 with -1 padding, dists [n, max_deg] float32 with +inf
+    padding)."""
+    if isinstance(mesh, ShardMesh):
+        if device is not None:
+            raise ValueError("build_distributed on a mesh runs on mesh.device; "
+                             f"device={device!r} is not taken")
+        dev = mesh.device
+    else:
+        mesh = make_local_mesh(mesh, device)
+        dev = mesh.device
     n, d = x.shape
     assert d == p.dim
+    block = p.n_tile // mesh.world                 # this rank's rows of a tile
     pad_n = _round_up(n, p.n_tile)
     if pad_n != n:
         filler = x[np.random.default_rng(seed).integers(0, n, pad_n - n)]
@@ -529,21 +526,24 @@ def build_distributed(x: np.ndarray, n_shards: int, p: DistBuildParams, *, seed:
     if hyperplanes is None:
         hyperplanes = _sketch.make_hyperplanes(seed, p.m_bits, p.dim)
     hp = torch.tensor(np.asarray(hyperplanes), dtype=torch.float32, device=dev)
-    tile_step = make_tile_step(n_shards, p)
-    fp_step = make_final_prune_step(n_shards, p)
+    tile_step = make_tile_step(mesh, p)
+    fp_step = make_final_prune_step(mesh, p)
     graph_parts, dist_parts = [], []
     for t0 in range(0, pad_n, p.n_tile):
-        tile = torch.tensor(np.asarray(x[t0: t0 + p.n_tile]), device=dev)
-        res_t, _ = tile_step(tile, hp, reservoir_init(p.n_tile, p.l_max, device=dev))
+        r0 = t0 + mesh.rank * block
+        tile = torch.tensor(np.asarray(x[r0: r0 + block]), device=dev)
+        res_t, _ = tile_step(tile, hp, reservoir_init(block, p.l_max, device=dev))
         if final_prune:
             # the final prune routes vectors by tile-local ids
             gid, gd = fp_step(tile, res_t.ids, res_t.dists)
         else:
             gid, gd = res_t.ids[:, : p.max_deg], res_t.dists[:, : p.max_deg]
+        del res_t, tile
+        gid, gd = mesh.all_gather([gid]), mesh.all_gather([gd])
         gid = torch.where(gid >= 0, gid + t0, gid)
         graph_parts.append(gid.cpu().numpy())
         dist_parts.append(gd.cpu().numpy())
-        del res_t, gid, gd
+        del gid, gd
     graph = np.concatenate(graph_parts)[:n]
     dists = np.concatenate(dist_parts)[:n]
     # drop edges pointing at pad points

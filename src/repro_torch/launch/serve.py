@@ -7,7 +7,9 @@ embeddings in and the ids out.  ``points_dtype`` picks the precision of the
 corpus copy: "f32" (exact), "bf16" (half the footprint) or "int8" (the
 scalar-quantized packing, about a quarter, with exact norm terms).
 ``n_shards`` serves through the sharded packing
-(``distributed.serving.ShardedServingIndex``), all shards on one device.
+(``distributed.serving.ShardedServingIndex``), all shards on one device;
+``mesh`` (a ``launch.mesh.ShardMesh``) spreads it over the mesh's ranks,
+each constructing the ``Retriever`` and calling ``retrieve`` alike.
 
 The reference module's LM ``Server`` is template scaffolding and is not
 ported.
@@ -29,14 +31,18 @@ class Retriever:
     ``final_prune`` off for MIPS, ``seed``).  ``metric`` defaults to the
     index's (or ``build_params``') own, and to "mips" for the default
     build; one that disagrees raises ``ValueError``.  ``device`` defaults
-    to the card and raises without one."""
+    to the card and raises without one; with ``mesh`` the device is the
+    mesh's and ``device`` must be None."""
 
     def __init__(self, corpus_emb, index=None, *, points_dtype: str = "f32",
                  metric: str | None = None, build_params=None, seed: int = 0,
-                 n_shards: int | None = None, device=None):
+                 n_shards: int | None = None, mesh=None, device=None):
         from repro_torch.core import pipnn
         from repro_torch.core.serving import ServingIndex
 
+        if mesh is not None and device is not None:
+            raise ValueError(f"a Retriever on a mesh runs on mesh.device; device={device!r} "
+                             "is not taken")
         if points_dtype not in RETRIEVER_DTYPES:
             raise ValueError(f"points_dtype must be one of {RETRIEVER_DTYPES}, "
                              f"got {points_dtype!r}")
@@ -61,12 +67,13 @@ class Retriever:
                     rbc=RBCParams(c_max=256, c_min=32, fanout=(4, 2)),
                     leaf=LeafParams(k=2), metric=metric, max_deg=32,
                     final_prune=(metric != "mips"), seed=seed)
-            index = pipnn.build(corpus_emb, build_params, device=device)
+            index = pipnn.build(corpus_emb, build_params,
+                                device=device if mesh is None else mesh.device)
         self.index = index
         dtype = {"f32": None, "bf16": torch.bfloat16, "int8": "int8"}[points_dtype]
         self.points_dtype = points_dtype
         self.sv = ServingIndex.from_index(index, corpus_emb, dtype=dtype, device=device,
-                                          n_shards=n_shards)
+                                          n_shards=n_shards, mesh=mesh)
 
     def retrieve(self, q_emb: np.ndarray, *, k: int = 2, beam: int = 32) -> np.ndarray:
         """Top-k corpus ids [Q, k] (int64) for a batch of query embeddings.

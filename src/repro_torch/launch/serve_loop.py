@@ -183,6 +183,12 @@ class ServeLoop:
                  max_retries: int | None = None, two_phase: bool = True,
                  clock: Callable[[], float] = time.monotonic,
                  on_event: Callable[[str, dict], None] | None = None):
+        mesh = getattr(index, "mesh", None)
+        if mesh is not None and mesh.world > 1:
+            # each rank's clock would take its own straggler and ladder
+            # decisions, and the collectives would part ways
+            raise ValueError(f"ServeLoop serves from one process; an index sharded over "
+                             f"{mesh.world} ranks would need rank 0 to broadcast each batch")
         self.index = index
         self.k = int(k)
         self.query_chunk = int(query_chunk)
