@@ -183,8 +183,31 @@ Phases (any failure exits non-zero before the last line is printed):
    "all", float32 and int8) over the mesh and with ``n_shards=8``, the
    first 2,000 queries at each beam after an untimed warm-up search each,
    the packing that runs first alternating from beam to beam: identical
-   ids, recall@10, QPS and gather launches of both.  One card cannot time a multi-card run: these
-   are the collectives' costs on one rank.
+   ids, recall@10, QPS and gather launches of both.  (c) Phase 8's fault
+   drill through ``ServeLoop`` over (b)'s float32 packings, on a fake
+   clock: over the group (each search, probe and tombstone sent through
+   ``ShardMesh.broadcast``) and with ``n_shards=8`` the records (every
+   result's ids, error, phase and operating point; counters, events,
+   injected faults) are identical, every request is answered and the
+   structured errors fall exactly on the poisoned rows; then over the
+   group on the real clock (the same record), p50 / p99 latency and
+   requests/s beside phase 8's drill.  One card cannot time a multi-card
+   run: these are the collectives' costs on one rank.
+11. the port's examples, the memory audit and the bounded-memory claim.
+   (a) ``examples/torch_quickstart.py`` (recall@10 at least 0.9),
+   ``torch_knn_graph.py`` (its own ``recall >= 0.90`` assert) and
+   ``torch_rag_retrieve.py`` at float32 and int8, in this process at
+   their default sizes: the build's leaf, hash and merge kernels and the
+   search's gather kernel must launch.  (b)
+   ``repro_torch.analysis.memory_audit.audit_all`` on the card: zero
+   findings; each program's ledger, exponents, temp over its model and
+   envelope price printed.  (c) The first 262,144 points built streamed
+   at leaf k = 2 and 4, each stage's device peak read on its own: E about
+   doubles (more than 1.5x, so edges kept across chunks would add more
+   than one chunk's edge buffer, ``stats["peak_edge_bytes"]``), the
+   streaming stage's peak holds its reservoir and one chunk's edges, and
+   that peak, like the whole build's, grows by less than one chunk's edge
+   buffer.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -192,6 +215,7 @@ the line before it the ``kernels`` JSON, and the last line the result JSON.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -1629,24 +1653,13 @@ def _percentiles(lat) -> dict:
     return dict(p50_ms=float(np.percentile(a, 50)), p99_ms=float(np.percentile(a, 99)))
 
 
-def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
-    """Phase 8 (c) and (d): the fault drill on the 1M S = 8 packing, then
-    the serving loop's latency on the single-card index, two-phase against
-    single-phase, an open-loop Poisson load and a search forced to "xla"."""
+def phase8_ladder(full: dict):
+    """The serving loop's ladder from phase 3's own card measurements, in
+    BENCH_qps.json's record format."""
     import tempfile
 
-    import numpy as np
-    import torch
+    from repro_torch.launch.serve_loop import ladder_from_bench
 
-    from repro_torch import kernels
-    from repro_torch.core.beam_search import recall_at_k
-    from repro_torch.launch.serve_loop import QueueFull, ServeLoop, ladder_from_bench
-    from repro_torch.testing.faults import FaultPlan, inject_faults, poison_queries
-
-    sv1, s8, truth = sharded["sv1"], sharded["s8"], full["truth"]
-    out = {"launches": {}}
-    # the ladder from phase 3's own card measurements, in BENCH_qps.json's
-    # record format
     recs = [dict(engine="serve_E4", beam=b, recall=r["recall_at_10"], qps=r["qps"])
             for b, r in full["searches"]["float32"].items()]
     with tempfile.TemporaryDirectory() as tmp:
@@ -1654,21 +1667,45 @@ def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
         path.write_text(json.dumps([{"records": recs}]))
         ladder = ladder_from_bench(path)
     check(ladder is not None, "no ladder from phase 3's records")
+    return ladder
+
+
+# the fault drill of phase 8 (c) and phase 10 (c): 1,024 requests, 5% of
+# them poisoned, shard 7 down for search calls [1, 6), one straggler
+DRILL_REQUESTS = 1024
+DRILL_PLAN = dict(shard_down={7: (1, 6)}, straggle={2: 0.01})
+DRILL_LOOP = dict(k=10, query_chunk=64, straggler_chunk=8, max_queue=1024, probe_every=1)
+
+
+def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
+    """Phase 8 (c) and (d): the fault drill on the 1M S = 8 packing, then
+    the serving loop's latency on the single-card index, two-phase against
+    single-phase, an open-loop Poisson load and a search forced to "xla"."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.beam_search import recall_at_k
+    from repro_torch.launch.serve_loop import QueueFull, ServeLoop
+    from repro_torch.testing.faults import FaultPlan, inject_faults, poison_queries
+
+    sv1, s8, truth = sharded["sv1"], sharded["s8"], full["truth"]
+    out = {"launches": {}}
+    ladder = phase8_ladder(full)
     out["ladder"] = [dict(name=p.name, beam=p.beam, recall=p.recall_bound, qps=p.qps)
                      for p in ladder]
     log("phase8 ladder", json.dumps(out["ladder"]))
 
     # (c) the fault drill
-    nreq = 1024
+    nreq = DRILL_REQUESTS
     q = q_np[:nreq]
     healthy = recall_at_k(s8.search(q, k=10, beam=ladder[0].beam), truth[:nreq])
     qp, rows = poison_queries(q, 0.05, seed=7)
-    plan = FaultPlan(shard_down={7: (1, 6)}, straggle={2: 0.01})
+    plan = FaultPlan(**DRILL_PLAN)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     with inject_faults(s8, plan) as inj:
-        loop = ServeLoop(s8, k=10, query_chunk=64, straggler_chunk=8, max_queue=1024,
-                         probe_every=1, ladder=ladder)
+        loop = ServeLoop(s8, ladder=ladder, **DRILL_LOOP)
         rid_to_row = {loop.submit(qp[i]): i for i in range(nreq)}
         res = loop.run_until_drained()
         for _ in range(12):
@@ -2270,7 +2307,7 @@ def _mesh_search(sv, q, truth, beam: int, counter: str) -> dict:
                 seconds=dt, launches=launches)
 
 
-def phase_mesh(x_np, q_np, full: dict, dist: dict, n_tile: int, l0: int) -> dict:
+def phase_mesh(x_np, q_np, full: dict, dist: dict, n_tile: int, l0: int, drill8: dict) -> dict:
     """Phase 10: the distributed build and sharded serving over a one-rank
     NCCL process group (``launch.mesh.init_mesh``); see the module
     docstring."""
@@ -2353,17 +2390,270 @@ def phase_mesh(x_np, q_np, full: dict, dist: dict, n_tile: int, l0: int) -> dict
                     for how, r in got.items():
                         res[how][str(beam)] = {k: v for k, v in r.items() if k != "ids"}
                         res[how][str(beam)]["ran_first"] = how == order[0]
+                if dtype is None:
+                    f32_svs = svs
                 del svs
                 torch.cuda.empty_cache()
                 res["ids_identical"] = True
                 out["serve"][name] = res
                 log("phase10 serve", name, json.dumps(res))
+
+            # (c) the serving loop over the group, beside one process
+            out["loop"] = phase_mesh_loop(f32_svs, q_np, full, drill8)
+            del f32_svs
+            torch.cuda.empty_cache()
         finally:
             mesh.close()
-    # the launches of each path: the build, then each mesh search
+    # the launches of each path: the build, each mesh search, the loops
     out["launches"] = {"mesh_build": out["build"]["launches"],
                        **{f"mesh_{name}_b{beam}": r["mesh"][str(beam)]["launches"]
-                          for name, r in out["serve"].items() for beam in BEAMS}}
+                          for name, r in out["serve"].items() for beam in BEAMS},
+                       "mesh_loop_drill": out["loop"]["launches"]}
+    return out
+
+
+def _loop_drill(sv, qp, ladder, clock) -> tuple[dict, list]:
+    """Phase 8's fault drill through ``ServeLoop`` over ``sv`` on ``clock``:
+    its record (every result's rid, ids, error, phase, partial and
+    operating point; the counters, events and injected faults) and its
+    results."""
+    from repro_torch.launch.serve_loop import ServeLoop
+    from repro_torch.testing.faults import FaultPlan, inject_faults
+
+    events = []
+    with inject_faults(sv, FaultPlan(**DRILL_PLAN)) as inj:
+        with ServeLoop(sv, ladder=ladder, clock=clock,
+                       on_event=lambda k, d: events.append([k, d]), **DRILL_LOOP) as loop:
+            for qi in qp:
+                loop.submit(qi)
+            res = loop.run_until_drained()
+            for _ in range(12):
+                res += loop.step()
+                if not sv.down_shards:
+                    break
+    check(not sv.down_shards and "search" not in vars(sv), "health or search not restored")
+    record = dict(results=[(r.rid, None if r.ids is None else r.ids.tolist(), r.error, r.phase,
+                            r.partial, r.op_point) for r in res],
+                  counters=dict(loop.counters), events=events,
+                  injected=[list(e) for e in inj.events], calls=inj.calls)
+    return json.loads(json.dumps(record)), res
+
+
+def phase_mesh_loop(svs: dict, q_np, full: dict, drill8: dict) -> dict:
+    """Phase 10 (c): phase 8's fault drill through ``ServeLoop`` over the S =
+    8 packing on the one-rank NCCL group (every search, probe and tombstone
+    sent through ``ShardMesh.broadcast``) and over ``n_shards=8`` in one
+    process, on a fake clock: identical records.  Then over the group on
+    the real clock: the same record, and latency and requests/s beside
+    phase 8's drill (the one-process loop over the same packing's twin)."""
+    from repro_torch import kernels
+    from repro_torch.testing.faults import poison_queries
+
+    class FakeClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    t_start = time.perf_counter()
+    ladder = phase8_ladder(full)
+    qp, rows = poison_queries(q_np[:DRILL_REQUESTS], 0.05, seed=7)
+    fake = {how: _loop_drill(svs[how], qp, ladder, FakeClock())[0] for how in ("n_shards", "mesh")}
+    check(fake["mesh"] == fake["n_shards"],
+          "phase 10 (c): the loop over the group differs from the one-process loop")
+    check(len(fake["mesh"]["results"]) == DRILL_REQUESTS, "phase 10 (c): a request unanswered")
+    check(sorted(r[0] for r in fake["mesh"]["results"] if r[2]) == rows.tolist()
+          and all(r[2] in (None, "invalid:nan_inf") for r in fake["mesh"]["results"]),
+          "phase 10 (c): structured errors are not exactly the poisoned rows")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    record, res = _loop_drill(svs["mesh"], qp, ladder, time.perf_counter)
+    wall = time.perf_counter() - t0
+    launches = _path_launches("phase10 loop mesh", ("gather_distance",))
+    # no decision reads the clock (no deadline, no p99 target): the real
+    # clock gives the fake clock's record but for the events' p99 readings
+    check({k: v for k, v in record.items() if k != "events"}
+          == {k: v for k, v in fake["mesh"].items() if k != "events"},
+          "phase 10 (c): the real clock's drill differs from the fake clock's")
+    out = {"fake_clock_identical": True, "launches": launches,
+           "mesh": dict(requests=len(res), wall_s=wall, requests_per_s=len(res) / wall,
+                        counters=record["counters"],
+                        **_percentiles([r.latency for r in res if r.ok])),
+           "phase8_drill": {k: drill8[k] for k in ("p50_ms", "p99_ms", "wall_s", "requests")}}
+    out["phase8_drill"]["requests_per_s"] = drill8["requests"] / drill8["wall_s"]
+    out["seconds"] = time.perf_counter() - t_start
+    log("phase10 loop", json.dumps(out))
+    return out
+
+
+# phase 11: the examples' bars, the paths whose kernels each must launch,
+# and the bounded-memory check's points and leaf k
+EXAMPLE_RECALL = 0.9
+BUILD_KERNELS = ("leaf_knn", "edge_hash", "segmented_merge")
+BOUNDED_N = 2 ** 18
+BOUNDED_K = (2, 4)
+# the build's stages, each read for its own device peak (``core.pipnn``'s
+# names, as ``build`` calls them)
+BUILD_STAGES = ("partition_padded", "_build_reservoir_streaming", "final_prune")
+
+
+@contextlib.contextmanager
+def _stage_peaks(record: dict):
+    """Within it, each of ``BUILD_STAGES`` that ``repro_torch.build`` calls
+    has its own device peak read: the card is synchronised and the peak
+    counter reset when the stage starts, and read when it ends.
+    ``record[stage]`` holds the bytes allocated at its start, its peak and
+    its peak above that start; ``record["between"]`` the highest peak read
+    outside the stages before each reset (the counter after the last stage
+    the caller reads)."""
+    import torch
+
+    from repro_torch.core import pipnn
+
+    def wrap(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            record["between"] = max(record.get("between", 0), torch.cuda.max_memory_allocated())
+            start = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            record[name] = dict(start=start, peak=peak, peak_above_start=peak - start)
+            return out
+        return run
+
+    orig = {name: getattr(pipnn, name) for name in BUILD_STAGES}
+    try:
+        for name, fn in orig.items():
+            setattr(pipnn, name, wrap(name, fn))
+        yield record
+    finally:
+        for name, fn in orig.items():
+            setattr(pipnn, name, fn)
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+
+    path = pathlib.Path(__file__).resolve().parent / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"_example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_examples_audit(x_np, seed: int, n_bounded: int) -> dict:
+    """Phase 11: (a) the port's examples in this process at their default
+    sizes, each held to its bar and its kernels; (b) the bounded-memory
+    audit (``analysis.memory_audit.audit_all``) with zero findings; (c) the
+    same ``n_bounded`` points streamed at leaf k = 2 and 4: E about doubles
+    and the streaming stage's own peak, and the build's, grow by less than
+    one chunk's edge buffer."""
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.analysis import memory_audit
+    from repro_torch.core.leaf import LeafParams
+
+    out = {"launches": {}, "examples": {}}
+    # (a) the examples; the search's kernel by the serving copy
+    runs = (("torch_quickstart", [], "gather_distance"),
+            ("torch_knn_graph", [], "gather_distance"),
+            ("torch_rag_retrieve", ["--ann-dtype", "f32"], "gather_distance"),
+            ("torch_rag_retrieve", ["--ann-dtype", "int8"], "gather_distance_int8"))
+    for name, argv, search_kernel in runs:
+        tag = name + (f"_{argv[-1]}" if argv else "")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = _example(name).main(argv)
+        wall = time.perf_counter() - t0
+        launches = _path_launches(f"phase11 {tag}", BUILD_KERNELS + (search_kernel,))
+        rec = {k: v for k, v in got.items() if k != "ids"}
+        if name == "torch_quickstart":
+            check(got["recall"] >= EXAMPLE_RECALL,
+                  f"quickstart recall@10 {got['recall']} below {EXAMPLE_RECALL}")
+        if name == "torch_rag_retrieve":
+            ids = got["ids"]
+            check(ids.shape == (8, 2) and bool((ids >= 0).all()), f"{tag}: ids {ids.tolist()}")
+            rec["ids"] = ids.tolist()
+        out["examples"][tag] = dict(wall_s=wall, launches=launches, **rec)
+        out["launches"][tag] = launches
+        log("phase11 example", tag, json.dumps(out["examples"][tag]))
+        torch.cuda.empty_cache()
+
+    # (b) the memory audit
+    records = {}
+    t0 = time.perf_counter()
+    findings = memory_audit.audit_all(device="cuda", records=records)
+    out["audit_s"] = time.perf_counter() - t0
+    for name, r in records.items():
+        log("phase11 audit", name, json.dumps(r))
+    check(findings == [], "memory audit findings:\n" + "\n".join(f.render() for f in findings))
+    out["audit"] = {name: dict(peak=r["canonical_ledger"]["peak"],
+                               temp=r["canonical_ledger"]["temp_bytes"],
+                               model=r["workspace_model"], exponents=r["exponents"],
+                               envelope_total=r["envelope_bytes"]["total"])
+                    for name, r in records.items()}
+    log("phase11 audit summary", json.dumps(dict(findings=0, seconds=out["audit_s"],
+                                                 specs=out["audit"])))
+    torch.cuda.empty_cache()
+
+    # (c) the bounded-memory check end to end, on the streaming stage's own
+    # peak: the whole build's is led by another stage
+    x = np.ascontiguousarray(x_np[:n_bounded])
+    builds = {}
+    for k in BOUNDED_K:
+        p = repro_torch.PiPNNParams(leaf=LeafParams(k=k), seed=seed)
+        with _stage_peaks({}) as stages:
+            idx, wall, tail, held, launches = _timed_build(
+                x, p, torch.device("cuda"), f"phase11 bounded k={k}", BUILD_KERNELS)
+        st = idx.stats
+        peaks = {name: stages[name]["peak"] for name in BUILD_STAGES}
+        peaks["between"], peaks["after"] = stages["between"], tail
+        whole = max(peaks.values())
+        stream = stages["_build_reservoir_streaming"]
+        builds[k] = dict(wall_s=wall, peak_device_bytes=whole, peak_above_held=whole - held,
+                         leading_stage=max(peaks, key=peaks.get), stages=stages,
+                         stream_peak_above_start=stream["peak_above_start"],
+                         reservoir_bytes=len(x) * p.l_max * 12,
+                         n_candidate_edges=st["n_candidate_edges"],
+                         stream_chunk_leaves=st["stream_chunk_leaves"],
+                         peak_edge_bytes=st["peak_edge_bytes"], n_leaves=st["n_leaves"],
+                         launches=launches)
+        out["launches"][f"bounded_k{k}"] = launches
+        # the stage's peak holds its reservoir and a chunk's edge buffer at
+        # once, so edges kept across chunks would show in it
+        check(stream["peak_above_start"] >= builds[k]["reservoir_bytes"] + st["peak_edge_bytes"],
+              f"k = {k}: the streaming stage's peak {stream['peak_above_start']} B does not "
+              f"hold its reservoir and one chunk's edges")
+        del idx
+        torch.cuda.empty_cache()
+    k2, k4 = (builds[k] for k in BOUNDED_K)
+    growth = k4["stream_peak_above_start"] - k2["stream_peak_above_start"]
+    build_growth = k4["peak_above_held"] - k2["peak_above_held"]
+    # what a stage that kept every edge would add: E's growth at 16 B an edge
+    kept = (k4["n_candidate_edges"] - k2["n_candidate_edges"]) * 16
+    check(k4["n_candidate_edges"] > 1.5 * k2["n_candidate_edges"],
+          f"leaf k = 4 did not grow E: {k2['n_candidate_edges']} -> {k4['n_candidate_edges']}")
+    check(kept > k4["peak_edge_bytes"],
+          f"E grew by {kept} B of edges, within one chunk's edge buffer "
+          f"{k4['peak_edge_bytes']}: the check could not fail")
+    check(growth < k4["peak_edge_bytes"],
+          f"the streaming stage's peak grew by {growth} bytes with E, one chunk's edge buffer "
+          f"being {k4['peak_edge_bytes']}")
+    check(build_growth < k4["peak_edge_bytes"],
+          f"the build's peak grew by {build_growth} bytes with E, one chunk's edge buffer "
+          f"being {k4['peak_edge_bytes']}")
+    out["bounded"] = dict(n=len(x), builds={str(k): v for k, v in builds.items()},
+                          stream_peak_growth=growth, peak_growth=build_growth,
+                          kept_edges_growth=kept, chunk_edge_bytes=k4["peak_edge_bytes"],
+                          edge_ratio=k4["n_candidate_edges"] / k2["n_candidate_edges"])
+    log("phase11 bounded", json.dumps(out["bounded"]))
     return out
 
 
@@ -2461,6 +2751,7 @@ def main() -> int:
     sharded = phase_sharded(full, x_np, q_np, args.seed, torch.device("cuda"), args.n_small)
     served = phase_loop(full, sharded, q_np, torch.device("cuda"))
     phase8 = {**sharded["launches"], **served["launches"]}
+    drill8 = served["drill"]
     del sharded, served
     log("phase8 s", round(time.perf_counter() - t0, 3))
     torch.cuda.empty_cache()
@@ -2471,8 +2762,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    mesh = phase_mesh(x_np, q_np, full, dist, dist_tile(args.n), DIST_L0)
+    mesh = phase_mesh(x_np, q_np, full, dist, dist_tile(args.n), DIST_L0, drill8)
     log("phase10 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    audit = phase_examples_audit(x_np, args.seed, dist_tile(args.n))
+    log("phase11 s", round(time.perf_counter() - t0, 3))
 
     # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
     # the path whose run the launches are read from)
@@ -2545,8 +2841,11 @@ def main() -> int:
         if name in p9_kernels:
             row.update(phase9_launches={k: v[counter] for k, v in p9.items()},
                        phase9_shapes={k: dist["kernels"][k] for k in p9_kernels[name]})
-        # phase 10: the build and the searches over the one-rank NCCL group
+        # phase 10: the build, the searches and the serving loop over the
+        # one-rank NCCL group (the loop also in one process)
         row.update(phase10_launches={k: v[counter] for k, v in mesh["launches"].items()})
+        # phase 11: the examples and the bounded-memory builds
+        row.update(phase11_launches={k: v[counter] for k, v in audit["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

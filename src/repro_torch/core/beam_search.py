@@ -165,6 +165,27 @@ def _lt(d1, i1, d2, i2):
     return (d1 < d2) | ((d1 == d2) & (i1 < i2))
 
 
+def _id_order(bids):
+    """A stable sort of each row of the block by id: (the [Q, M] bool mask
+    of the entries whose id occurs at a lower index of their row, the
+    sort's order).  Stability keeps each id's first entry first."""
+    sid, order = torch.sort(bids, dim=1, stable=True)
+    rep = torch.nn.functional.pad(sid[:, 1:] == sid[:, :-1], (1, 0))
+    return torch.empty_like(rep).scatter_(1, order, rep), order
+
+
+def _block_rank(bds, vb, order):
+    """[Q, M] int64: each valid entry's rank among its row's valid entries
+    by (dist, id): its place in a stable sort by dist of the block in id
+    ``order``, where the invalid entries sort last at +inf (-0.0 made
+    +0.0 first, so it ties with +0.0 as in the comparisons)."""
+    inf = torch.full((), float("inf"), device=bds.device)
+    key = (torch.where(vb, bds, inf) + 0.0).gather(1, order)
+    perm = order.gather(1, torch.sort(key, dim=1, stable=True).indices)
+    iota = torch.arange(perm.shape[1], device=perm.device).expand_as(perm)
+    return torch.empty_like(perm).scatter_(1, perm, iota)
+
+
 def merge_block(ids, ds, vis, bids, bds):
     """Fold one [Q, M] candidate block into a sorted [Q, L] beam.
 
@@ -174,21 +195,21 @@ def merge_block(ids, ds, vis, bids, bds):
     (the beam's own rank is its slot index).  Slots past L fall off.
     Visited flags ride along on the beam side; new entries are
     unvisited.  The placement is a scatter instead of the reference's
-    one-hot sums, with the same result."""
+    one-hot sums, and the block's repeats and own ranks come from sorts
+    instead of its [M, M] comparisons, with the same result: the device
+    bytes grow as M L, never as M^2."""
     nq, beam = ids.shape
-    m = bids.shape[1]
     dev = ids.device
     inf = torch.full((), float("inf"), device=dev)
-    iota_m = torch.arange(m, device=dev)
-    dup = torch.any((bids[:, :, None] == bids[:, None, :])
-                    & (iota_m[None, :] < iota_m[:, None]), dim=2)
     beam_ids = torch.where(ids >= 0, ids, -2)
     member = torch.any(bids[:, :, None] == beam_ids[:, None, :], dim=2)
-    bds = torch.where(dup | member | (bids < 0), inf, bds)
+    rep, order = _id_order(bids)
+    bds = torch.where(rep | member | (bids < 0), inf, bds)
+    del member, rep
     va = torch.isfinite(ds)
     vb = torch.isfinite(bds)
-    b_lt_b = _lt(bds[:, None, :], bids[:, None, :], bds[:, :, None], bids[:, :, None])
-    rank_b = torch.sum(vb[:, None, :] & b_lt_b, dim=2, dtype=torch.int64)
+    rank_b = _block_rank(bds, vb, order)
+    del order
     b_lt_a = _lt(bds[:, None, :], bids[:, None, :], ds[:, :, None], ids[:, :, None])
     iota_l = torch.arange(beam, device=dev)
     pos_a = torch.where(va, iota_l + torch.sum(vb[:, None, :] & b_lt_a, dim=2,

@@ -200,6 +200,35 @@ def hashprune_merge_segmented(res: Reservoir, src, dst, hashes, dists) -> Reserv
     return merge_segmented_edges(res.ids, res.hashes, res.dists, src, dst, hashes, dists)
 
 
+# ---------------------------------------------------------------------------
+# Workspace models (checked by ``analysis.memory_audit``, PIPM004)
+# ---------------------------------------------------------------------------
+
+# bytes an entry of one stable argsort of an int64 key holds at its peak:
+# the key, the sorted keys, the index iota and the sorted indices (8 each),
+# and up to another 16 of radix-sort scratch
+SORT_BYTES = 48
+
+
+def merge_segmented_workspace_bytes(n: int, l_max: int, e: int) -> int:
+    """Modeled device temp bytes of one ``merge_segmented_edges`` fold of an
+    ``e``-edge chunk on the card: ``hashprune_flat``'s [n, l_max] chunk
+    reservoir (12 B a slot) and, at its peak (the (src, dist, dst) sort),
+    four permuted edge columns beside one ``SORT_BYTES`` argsort; the row
+    merge writes into the reservoir in place and allocates nothing.  Only
+    the chunk and the reservoir appear, never the total edge count."""
+    return n * l_max * 12 + e * (16 + SORT_BYTES)
+
+
+def merge_flat_workspace_bytes(n: int, l_max: int, e: int) -> int:
+    """Modeled device temp bytes of one ``merge_flat_edges`` fold: the
+    reservoir as ``n * l_max`` edges (a source column, 4 B a slot), their
+    concatenation with the chunk (16 B an edge) and ``hashprune_flat``'s
+    sort over all of them; its new reservoir is output, not temp."""
+    entries = n * l_max + e
+    return n * l_max * 4 + entries * 16 + entries * (16 + SORT_BYTES)
+
+
 def _less(d1: float, i1: int, d2: float, i2: int) -> bool:
     """(dist, id) lexicographic strict less-than."""
     return d1 < d2 or (d1 == d2 and i1 < i2)

@@ -38,7 +38,8 @@ paper's alpha for l2; MIPS uses alpha = 1.  ``LeafParams.alpha`` (the
 ``robust_prune`` leaf method) is used as given, as in the reference.
 
 Not ported: ``use_pallas_hash`` and ``use_pallas_merge`` (the kernel
-follows the tensors' device here) and the XLA workspace-byte models.
+follows the tensors' device here).  ``stream_step_workspace_bytes`` models
+the device bytes of one fused chunk step (``analysis.memory_audit``).
 """
 from __future__ import annotations
 
@@ -52,8 +53,9 @@ import torch
 from repro_torch.core import sketch as _sketch
 from repro_torch.core.beam_search import beam_search_np, medoid
 from repro_torch.core.hashprune import (INVALID_ID, Reservoir, hashprune_flat,
-                                        merge_flat_edges, merge_segmented_edges,
-                                        reservoir_init)
+                                        merge_flat_edges, merge_flat_workspace_bytes,
+                                        merge_segmented_edges,
+                                        merge_segmented_workspace_bytes, reservoir_init)
 from repro_torch.core.leaf import (KNN_METHODS, LeafParams, build_leaf_edges, check_k,
                                    check_method, emit_knn_edges, emit_robust_prune_edges,
                                    iter_leaf_id_chunks, leaf_knn, leaf_robust_prune)
@@ -173,6 +175,22 @@ def _stream_step(res: Reservoir, xt, sketches, ids, *, leaf: LeafParams, merge: 
     edges, count = _chunk_edges(xt, sketches, ids, leaf=leaf, knn_fn=knn_fn)
     fold = merge_flat_edges if merge == "flat" else merge_segmented_edges
     return fold(res.ids, res.hashes, res.dists, *edges), count
+
+
+def stream_step_workspace_bytes(n: int, l_max: int, s: int, c: int, k: int, *,
+                                method: str = "bidirected", merge: str = "segmented") -> int:
+    """Modeled device temp bytes of one ``_stream_step`` on the card: ``s``
+    leaves of ``c`` padded entries emit ``e = s * edges-a-leaf`` candidate
+    edges, which reach the fold as four masked columns (16 B an edge: the
+    build's ``stats["peak_edge_bytes"]``), and the fold adds its own
+    workspace (``hashprune.merge_*_workspace_bytes``).  The emission before
+    it (the k-NN lists, raw edges, hashes and masks, under 42 B an edge)
+    stays below the fold's peak.  Only the chunk and the reservoir shapes
+    appear, never the build's total edge count E: the bounded-memory
+    contract ``analysis.memory_audit`` checks."""
+    e = s * _stream_edges_per_leaf(LeafParams(method=method, k=k), c)
+    fold = merge_flat_workspace_bytes if merge == "flat" else merge_segmented_workspace_bytes
+    return e * _EDGE_BYTES + fold(n, l_max, e)
 
 
 def _build_reservoir_streaming(xt: torch.Tensor, leaves_padded: np.ndarray,

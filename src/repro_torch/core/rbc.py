@@ -370,6 +370,42 @@ def static_leaf_ids(xt: torch.Tensor, params: RBCParams, *,
     return static_leaf_routing(a1, bpid, sh, params.c_max)
 
 
+def carve_workspace_bytes(n: int, d: int, params: RBCParams) -> int:
+    """Modeled device temp bytes of ``static_leaf_ids`` over ``n`` points of
+    width ``d`` on the card: the largest of its four phases' live bytes,
+    from its shapes (``carve_chunks``; B = the rows a level-0 block takes,
+    S the buckets a level-1 block takes), its [l0 * l1, c_max] output not
+    counted:
+
+      * level 0's assignment: the [n_pad, f0r] ids, the leaders, a block's
+        [B, l0] distances and its top-k ids and values;
+      * level 0's grouping of E0 = n_pad * f0r placements: the ids and
+        their mask, the segments and their concatenation (9 B each), and
+        ``group_by_capacity``'s sorted keys, order, ranks, row and column
+        and gathered payload (49 B an entry) beside its [l0, cap_b] ids and
+        mask;
+      * level 1's assignment: the buckets' ids and mask, the [l0, cap_b,
+        f1] ids, and a block's gathered points and leaders, its two
+        [S, cap_b, l1] distance copies and its top-k;
+      * the leaf routing of E1 = l0 * cap_b * f1 placements: the level-1
+        ids, the leaf keys, mask and point payload, the Weyl permutation,
+        the shuffled copies and ``group_by_capacity``'s buffers (79 B an
+        entry) beside the buckets and the leaves' validity mask."""
+    sh = carve_chunks(n, params)
+    n_pad, l0, f0r, cap_b = sh["n_pad"], sh["l0"], sh["f0r"], sh["cap_b"]
+    l1, f1 = sh["l1"], sh["f1"]
+    rows = min(_BLOCK_ROWS, n)
+    step = min(static_level1_block_buckets(sh), l0)
+    e0, e1 = n_pad * f0r, l0 * cap_b * f1
+    buckets = 5 * l0 * cap_b
+    level0 = 4 * e0 + 4 * l0 * d + 4 * rows * l0 + 8 * rows * f0r
+    group0 = (4 + 1 + 9 + 9 + 49) * e0 + 4 * n_pad + buckets
+    level1 = (buckets + 4 * e1 + step * cap_b * (4 * d + 12) + step * l1 * (4 * d + 12)
+              + 8 * step * cap_b * l1 + 8 * step * cap_b * f1)
+    routing = 79 * e1 + buckets + l0 * l1 * params.c_max
+    return max(level0, group0, level1, routing)
+
+
 def ball_carve_device(xt: torch.Tensor, params: RBCParams, *,
                       seed: int | None = None) -> np.ndarray:
     """The static two-level carve: the padded [L, c_max] int32 leaf matrix,

@@ -7,8 +7,9 @@ point's HashPrune reservoir (``final_prune``, and its host-looped oracle
 The reference's ``lax.scan`` over candidate ranks is a Python loop over
 the ranks here, each step one set of tensor operations over all rows at
 once.  Rows are independent, so the chunk size of ``final_prune`` changes
-no result; the output is written into preallocated [n, max_deg] tensors in
-place.
+no result; each ``final_prune_step`` writes its rows into preallocated
+[n, max_deg] tensors in place.  ``final_prune_workspace_bytes`` models a
+step's device bytes (``analysis.memory_audit``).
 """
 from __future__ import annotations
 
@@ -111,21 +112,47 @@ def prune_reservoir_block(ids: torch.Tensor, dists: torch.Tensor,
     return torch.where(torch.isfinite(s_d), s_i, INVALID_ID), s_d
 
 
+def final_prune_step(x: torch.Tensor, res_ids: torch.Tensor, res_dists: torch.Tensor,
+                     out_ids: torch.Tensor, out_d: torch.Tensor, start: int, *,
+                     alpha: float, max_deg: int, metric: str, chunk: int):
+    """One step of ``final_prune``: reservoir rows ``[start, start + chunk)``
+    pruned and written into ``out_ids`` / ``out_d`` in place (the
+    reference's donated buffers); returns them."""
+    ids = res_ids[start:start + chunk]
+    cvecs = x[ids.clamp_min(0).long()]                       # [chunk, L, d]
+    d_cc = pairwise(cvecs, cvecs, metric)
+    del cvecs
+    out_ids[start:start + chunk], out_d[start:start + chunk] = prune_reservoir_block(
+        ids, res_dists[start:start + chunk], d_cc, alpha=alpha, max_deg=max_deg)
+    return out_ids, out_d
+
+
+def final_prune_workspace_bytes(chunk: int, l_max: int, d: int, max_deg: int) -> int:
+    """Modeled device temp bytes of one ``final_prune_step`` (B = ``chunk``
+    rows, L = ``l_max``): the gathered [B, L, d] candidate vectors and the
+    four [B, L, L] float32 buffers ``metrics.pairwise`` holds at once
+    (the products, the norm sum, their doubled copy and the difference),
+    then the greedy's keys, masks and its two sorts (96 B a candidate) and
+    the [B, max_deg] rows before they are written out.  Chunk-shaped only:
+    the [n, max_deg] outputs are written in place."""
+    gathered = chunk * l_max * d * 4
+    d_cc = 4 * chunk * l_max * l_max * 4
+    greedy = chunk * l_max * 96 + chunk * max_deg * 12
+    return gathered + d_cc + greedy
+
+
 def final_prune(x: torch.Tensor, res: Reservoir, *, alpha: float = 1.2,
                 max_deg: int = 64, metric: str = "l2", chunk: int = 16384):
     """Sec. 4.3 final pass: RobustPrune every reservoir, ``chunk`` rows at a
-    time, into [n, max_deg] (int32 adjacency with -1 padding, float32
-    dists with +inf padding) on ``x``'s device."""
+    time (``final_prune_step``), into [n, max_deg] (int32 adjacency with -1
+    padding, float32 dists with +inf padding) on ``x``'s device."""
     n = res.ids.shape[0]
     chunk = max(1, min(chunk, n))
     out_ids = torch.full((n, max_deg), INVALID_ID, dtype=torch.int32, device=x.device)
     out_d = torch.full((n, max_deg), float("inf"), dtype=torch.float32, device=x.device)
     for s in range(0, n, chunk):
-        ids = res.ids[s:s + chunk]
-        cvecs = x[ids.clamp_min(0).long()]                   # [chunk, L, d]
-        d_cc = pairwise(cvecs, cvecs, metric)
-        out_ids[s:s + chunk], out_d[s:s + chunk] = prune_reservoir_block(
-            ids, res.dists[s:s + chunk], d_cc, alpha=alpha, max_deg=max_deg)
+        final_prune_step(x, res.ids, res.dists, out_ids, out_d, s, alpha=alpha,
+                         max_deg=max_deg, metric=metric, chunk=chunk)
     return out_ids, out_d
 
 

@@ -51,6 +51,35 @@ def _is_int8(dtype) -> bool:
         return False
 
 
+def merge_block_workspace_bytes(m: int, l: int) -> int:
+    """Modeled device bytes one query row of ``beam_search.merge_block``
+    holds at its peak, folding ``m`` candidates into an ``l``-wide beam:
+    13 B a candidate held throughout (the block's masked distances and
+    valid flags, and its id order, then its ranks) beside, first, the
+    dist sort's keys, values, indices and composed order (24 B a
+    candidate), then the three [l, m] buffers of its cross counts: the
+    comparison mask, its masked copy and the int64 copy the row sum makes
+    (10 B a pair).  Linear in ``m``: no [m, m] buffer."""
+    return max(10 * l * m, 24 * m) + 13 * m
+
+
+def engine_workspace_bytes(nq: int, n: int, d: int, r: int, beam: int,
+                           expansions: int) -> int:
+    """Modeled device temp bytes of one ``beam_search._beam_search_multi``
+    run over a chunk of ``nq`` queries on the card, per query: a step's
+    candidate block of E = ``expansions`` x R ids (the neighbour rows, their
+    mask, the candidate ids and the gather kernel's distances: 13 B a
+    candidate, and 28 B an expansion for its picks), one ``merge_block``
+    of R candidates into the beam (``merge_block_workspace_bytes``) and the
+    beam state, old and new (ids, dists, visited: 9 B a slot, each).
+    Chunk-shaped: the index (``n``, ``d``) is argument, and the kernel
+    gathers no [nq, E*R, d] block, so neither appears."""
+    c = expansions * r
+    cand = 13 * c + 28 * expansions
+    state = 2 * 9 * (beam + 1) + 16
+    return nq * (cand + merge_block_workspace_bytes(r, beam) + state)
+
+
 def _to_device(a, dtype, device) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         return a.to(device=device, dtype=dtype).contiguous()

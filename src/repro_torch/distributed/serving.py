@@ -26,7 +26,9 @@ shard by shard and merged (counterpart of ``repro/distributed/serving.py``).
     shards (``mesh.all_gather``) and merges them itself, so ids and
     telemetry are the same on every rank.  The SPMD contract: every rank
     calls ``search``, ``mark_shard_down`` / ``mark_shard_up`` and
-    ``probe_shard`` alike, with the same arguments.
+    ``probe_shard`` alike, with the same arguments (the serving loop keeps
+    it by sending rank 0's calls to the other ranks,
+    ``launch.serve_loop.serve_follower``).
   * **Routing.**  ``router="all"`` sends every query to every healthy
     shard (the recall-parity configuration); ``router="leaders"`` to its
     ``n_probes`` nearest healthy leaders.
@@ -100,6 +102,18 @@ def cross_shard_topk(ids_s: torch.Tensor, ds_s: torch.Tensor, *, k: int):
         ids, ds, vis = _bs.merge_block(ids, ds, vis, bids.to(torch.int32),
                                        bds.to(torch.float32))
     return ids, ds
+
+
+def cross_shard_topk_workspace_bytes(n_shards: int, nq: int, b: int, k: int) -> int:
+    """Modeled device temp bytes of one ``cross_shard_topk``, per query:
+    one ``merge_block`` of a shard's B entries into the [k] carry
+    (``core.serving.merge_block_workspace_bytes``) and the carry, old and
+    new (ids, dists, visited: 9 B a slot, each).  The fold merges one shard
+    at a time, so ``n_shards`` appears only in the stacked input blocks,
+    which are arguments."""
+    from repro_torch.core.serving import merge_block_workspace_bytes
+
+    return nq * (merge_block_workspace_bytes(b, k) + 2 * 9 * (k + 1))
 
 
 def _host(a, dtype) -> np.ndarray:

@@ -13,18 +13,22 @@ Its methods are the only places where shards meet:
     buffer goes out and each local receiver gets ``[S_src, cap, ...]``,
     row ``src`` being sender ``src``'s row for it
     (``lax.all_to_all(split_axis=0, concat_axis=0, tiled=True)``);
-  * ``psum(local_parts)``: the shards' values summed (``lax.psum``).
+  * ``psum(local_parts)``: the shards' values summed (``lax.psum``);
+  * ``broadcast(obj)``: rank 0's object or tensor on every rank (the
+    serving loop's decisions, ``launch.serve_loop``).
 
 **One process** (``make_local_mesh``, or a mesh of ``world == 1`` without
 a group) holds all S shards, and the methods are plain list functions: a
 concatenation, the transpose of the shard grid and a stacked sum
-(``all_gather``, ``all_to_all`` and ``psum`` below).
+(``all_gather``, ``all_to_all`` and ``psum`` below); ``broadcast`` returns
+its argument.
 
 **W processes** (``init_mesh``) run one collective a payload: the local
 sends are packed into one contiguous ``[W_dst, L_src, L_dst, cap, ...]``
 tensor for ``all_to_all_single`` and unpacked into ``[S_src, cap, ...]``
 for each local receiver; ``all_gather`` is the local concatenation and
-one ``all_gather``; ``psum`` the local sum and one ``all_reduce``.  Bool
+one ``all_gather``; ``psum`` the local sum and one ``all_reduce``;
+``broadcast`` one ``broadcast`` (a tensor) or ``broadcast_object_list``.  Bool
 masks travel as ``uint8``; every other dtype travels as it is.  The
 backend follows the device: NCCL on the card, gloo on the CPU (which the
 CPU tests use).
@@ -149,6 +153,22 @@ class ShardMesh:
             total = total.contiguous()
             dist.all_reduce(total, group=self.group)
         return total
+
+    def broadcast(self, obj):
+        """Rank 0's ``obj`` on every rank: a tensor (every rank passes one of
+        the same shape and dtype on its device and gets rank 0's values
+        back) or any picklable object (the other ranks pass a placeholder).
+        One ``torch.distributed`` call over the group; in one process
+        ``obj`` itself."""
+        if self.group is None:
+            return obj
+        if isinstance(obj, torch.Tensor):
+            w = _wire(obj)
+            dist.broadcast(w, src=0, group=self.group)
+            return _unwire(w, obj.dtype)
+        box = [obj]
+        dist.broadcast_object_list(box, src=0, group=self.group, device=self.device)
+        return box[0]
 
     def exchange(self, per_local: list[list[torch.Tensor]]) -> list[list[torch.Tensor]]:
         """``all_to_all`` of each payload of the local senders' payload

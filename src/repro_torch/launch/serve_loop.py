@@ -29,9 +29,32 @@ shard-failure survival, over a ``ServingIndex`` or a
     succeeds.
 
 The injected ``clock`` is the loop's only time source; with it and the
-schedules of ``testing.faults`` a drill replays exactly.  The reference's
-``straggler_workspace_bytes`` models XLA's temporary buffers and is not
-ported.
+schedules of ``testing.faults`` a drill replays exactly.
+
+**Over a multi-rank shard mesh** (a ``ShardedServingIndex`` whose
+``mesh`` has a process group) rank 0 runs the loop and every other rank
+runs :func:`serve_follower` on its own copy of the index.  Rank 0 alone
+reads the clock and the queue, so it alone takes every decision: the
+deadlines, which requests are live or poisoned, the phase-2 stragglers
+and their chunks, the ladder's shifts and the probes.  Each call of the
+index that reaches a collective (``search``, ``probe_shard``) or changes
+its health (``mark_shard_down``) is first sent to the followers
+(``ShardMesh.broadcast``), and then made on rank 0; the followers make the
+same call with the same arguments, in the same order, and drop its
+result.  The exceptions raised before the first collective come from
+state that every rank holds: ``AllShardsDown`` (the health mask),
+``InvalidQueryError`` (the arguments) and a failure that names a shard
+(``.shard``, as an injected fault's schedule raises it).  Every rank
+raises those alike; a follower drops them and waits for rank 0's next
+call, which is the tombstone that follows or the retry.  Any other
+exception on a follower (a device error, a collective's timeout) is its
+own, so :func:`serve_follower` raises it and the group fails instead of
+parting ways.  :meth:`ServeLoop.close` (or leaving ``with
+ServeLoop(...)``) sends the followers the stop.  A follower waits in the
+broadcast between calls, so the group's timeout (``init_mesh(timeout_s=)``)
+bounds how long rank 0 may stay idle.  A rank that dies is not survived:
+the others' collectives time out and raise.  In one process (no mesh, or
+a mesh without a group) nothing is sent and the loop is as it was.
 """
 from __future__ import annotations
 
@@ -47,9 +70,10 @@ from repro_torch.core.beam_search import default_iters
 from repro_torch.core.validation import (InvalidQueryError, validate_queries,
                                          validate_search_params)
 from repro_torch.distributed.fault_tolerance import RollingPercentile
+from repro_torch.distributed.serving import AllShardsDown
 
 __all__ = ["OperatingPoint", "QueueFull", "Request", "Result", "ServeLoop",
-           "default_ladder", "ladder_from_bench"]
+           "default_ladder", "ladder_from_bench", "serve_follower"]
 
 
 class QueueFull(RuntimeError):
@@ -172,7 +196,9 @@ class ServeLoop:
 
     ``clock`` is the loop's only time source (tests pass a fake): deadlines,
     latencies and the p99 window all read it.  ``two_phase=False`` is plain
-    single-phase batching, the baseline of the drain."""
+    single-phase batching, the baseline of the drain.  Over a mesh with a
+    process group the loop runs on rank 0 only (``ValueError`` elsewhere)
+    and the other ranks run :func:`serve_follower` until :meth:`close`."""
 
     def __init__(self, index, *, k: int = 10, query_chunk: int = 32,
                  straggler_chunk: int = 8, max_queue: int = 256,
@@ -184,12 +210,15 @@ class ServeLoop:
                  clock: Callable[[], float] = time.monotonic,
                  on_event: Callable[[str, dict], None] | None = None):
         mesh = getattr(index, "mesh", None)
-        if mesh is not None and mesh.world > 1:
+        if mesh is not None and mesh.rank != 0:
             # each rank's clock would take its own straggler and ladder
             # decisions, and the collectives would part ways
-            raise ValueError(f"ServeLoop serves from one process; an index sharded over "
-                             f"{mesh.world} ranks would need rank 0 to broadcast each batch")
+            raise ValueError(f"ServeLoop runs on rank 0 of the mesh; rank {mesh.rank} runs "
+                             "serve_follower(index)")
         self.index = index
+        # the group rank 0 sends each index call over (None in one process)
+        self._mesh = mesh if mesh is not None and mesh.group is not None else None
+        self._closed = False
         self.k = int(k)
         self.query_chunk = int(query_chunk)
         self.straggler_chunk = max(1, min(int(straggler_chunk), self.query_chunk))
@@ -305,6 +334,28 @@ class ServeLoop:
         if self.on_event is not None:
             self.on_event(kind, detail)
 
+    def close(self) -> None:
+        """Send the followers the stop (a no-op in one process and after the
+        first call).  A closed loop calls its index no more."""
+        if self._mesh is not None and not self._closed:
+            self._mesh.broadcast(None)
+        self._closed = True
+
+    def __enter__(self) -> "ServeLoop":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _call(self, name: str, *args, **kw):
+        """The index's ``name`` on this rank, sent to the followers first
+        over a mesh's group."""
+        if self._closed:
+            raise RuntimeError("the serving loop is closed")
+        if self._mesh is not None:
+            self._mesh.broadcast((name, args, kw))
+        return getattr(self.index, name)(*args, **kw)
+
     def _search(self, queries: np.ndarray, *, iters: int, chunk: int):
         """One search with shard-failure survival: an exception carrying
         ``.shard`` tombstones that shard and the same batch is retried on
@@ -312,25 +363,24 @@ class ServeLoop:
         op = self.operating_point
         for attempt in range(self.max_retries + 1):
             try:
-                return self.index.search(queries, k=self.k, beam=op.beam,
-                                         expansions=op.expansions, iters=iters,
-                                         query_chunk=chunk, with_stats=True)
+                return self._call("search", queries, k=self.k, beam=op.beam,
+                                  expansions=op.expansions, iters=iters,
+                                  query_chunk=chunk, with_stats=True)
             except Exception as e:  # noqa: BLE001 (filtered just below)
                 shard = getattr(e, "shard", None)
                 if (shard is None or attempt >= self.max_retries
                         or not hasattr(self.index, "mark_shard_down")):
                     raise
-                self.index.mark_shard_down(int(shard))
+                self._call("mark_shard_down", int(shard))
                 self.counters["shards_marked_down"] += 1
                 self._emit("shard_down", shard=int(shard), step=self._steps)
         raise AssertionError("unreachable")  # pragma: no cover
 
     def _probe_tombstones(self) -> None:
-        probe = getattr(self.index, "probe_shard", None)
-        if probe is None:
+        if not hasattr(self.index, "probe_shard"):
             return
         for s in getattr(self.index, "down_shards", ()):
-            if probe(s):
+            if self._call("probe_shard", s):
                 self.counters["shards_readmitted"] += 1
                 self._emit("shard_up", shard=int(s), step=self._steps)
 
@@ -407,3 +457,40 @@ class ServeLoop:
         self._emit(kind, from_point=old.name, to_point=new.name,
                    recall_bound_from=old.recall_bound, recall_bound_to=new.recall_bound,
                    step=self._steps, **detail)
+
+
+def serve_follower(index) -> collections.Counter:
+    """Follow rank 0's ``ServeLoop`` on another rank of ``index``'s mesh:
+    make each index call rank 0 sends (``search``, ``probe_shard``,
+    ``mark_shard_down``), with its arguments, until rank 0 closes the loop.
+    A call's exception that every rank raises alike before the first
+    collective (:func:`_raised_on_every_rank`) is dropped: rank 0 met the
+    same one from the same state and decides what follows.  Any other
+    exception is this rank's own and is raised.  Returns the calls made,
+    by name, and ``"raised"``: the calls that raised and were dropped.
+    ``ValueError`` on rank 0 or without a process group."""
+    mesh = getattr(index, "mesh", None)
+    if mesh is None or mesh.group is None or mesh.rank == 0:
+        raise ValueError("serve_follower runs on ranks 1..W-1 of a mesh with a process "
+                         "group; rank 0 runs ServeLoop(index)")
+    calls = collections.Counter()
+    while True:
+        cmd = mesh.broadcast(None)
+        if cmd is None:
+            return calls
+        name, args, kw = cmd
+        calls[name] += 1
+        try:
+            getattr(index, name)(*args, **kw)
+        except Exception as e:  # noqa: BLE001 (filtered just below)
+            if not _raised_on_every_rank(e):
+                raise
+            calls["raised"] += 1
+
+
+def _raised_on_every_rank(e: BaseException) -> bool:
+    """Whether ``e`` is decided before the search's first collective from
+    state every rank holds, so that rank 0 raised it too: a failure that
+    names a shard, ``AllShardsDown`` or ``InvalidQueryError``."""
+    return (getattr(e, "shard", None) is not None
+            or isinstance(e, (AllShardsDown, InvalidQueryError)))

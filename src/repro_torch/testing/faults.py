@@ -20,6 +20,14 @@ replays the same way on every run:
 ``inject_faults`` patches the instance's ``search`` (the class and every
 other index stay untouched) and restores it on exit; the yielded
 :class:`FaultInjector` logs every injected fault.
+
+Over a multi-rank shard mesh every rank installs the injector on its own
+index with the same plan: the serving loop's followers
+(``launch.serve_loop.serve_follower``) make the same ``search`` and
+``probe_shard`` calls as rank 0, so each rank's call counter advances
+alike, and the health mask a failure is checked against is the same on
+every rank.  Every rank then raises the same ``InjectedShardFailure``
+before the search's first collective, and sleeps the same straggles.
 """
 from __future__ import annotations
 

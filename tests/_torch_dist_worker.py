@@ -5,7 +5,9 @@
 Started once per rank by the test.  It joins a gloo group of WORLD ranks
 through a ``FileStore`` in OUT (collectives time out after 60 s), runs
 every scenario of that world (the refusals, the exchanges, the
-distributed build and sharded serving) on the reference helpers' inputs
+distributed build, sharded serving and the serving loop's S = 8 fault
+drill, rank 0 running the loop and the others following it, and a
+follower's own fault) on the reference helpers' inputs
 (``_torch_build_reference.build_inputs``,
 ``_torch_shard_reference.shard_inputs``, saved to the two ``.npz``
 files), and writes what it got to ``OUT/rank<RANK>.npz``.  Torch runs on one thread.  The scenario
@@ -15,6 +17,7 @@ one process for the comparison.
 from __future__ import annotations
 
 import dataclasses
+import json
 import pathlib
 import sys
 
@@ -134,8 +137,9 @@ def serve_scenarios(pack, q, n_shards: int) -> dict:
 
 def exchange_scenarios(mesh) -> dict:
     """Each exchange on payloads every rank can form whole (int32, bool
-    and int8 sends; int32 parts), against the one-process list functions:
-    True where this rank's share equals theirs."""
+    and int8 sends; int32 parts), against the one-process list functions,
+    and the broadcast of rank 0's tensors and object: True where this
+    rank's share equals theirs."""
     from repro_torch.launch import mesh as m
 
     s, cap = mesh.n_shards, 3
@@ -156,6 +160,13 @@ def exchange_scenarios(mesh) -> dict:
     parts = [torch.tensor([i, 2 * i], dtype=torch.int32) for i in range(s)]
     total = mesh.psum([parts[i] for i in mesh.local])
     out["psum"] = np.bool_(total.dtype == torch.int32 and torch.equal(total, m.psum(parts)))
+    # rank 0's tensor (int32 and bool) and object on every rank
+    t = mesh.broadcast(torch.full((3,), 7 + mesh.rank, dtype=torch.int32))
+    b = mesh.broadcast(torch.tensor([mesh.rank == 0, True]))
+    obj = mesh.broadcast({"from": mesh.rank, "q": np.arange(3)} if mesh.rank == 0 else None)
+    out["broadcast"] = np.bool_(torch.equal(t, torch.full((3,), 7, dtype=torch.int32))
+                                and b.dtype == torch.bool and bool(b.all())
+                                and obj["from"] == 0 and obj["q"].tolist() == [0, 1, 2])
     return out
 
 
@@ -174,6 +185,89 @@ def entry_scenarios(mesh, inp: dict) -> dict:
                                     and idx._serving.mesh is mesh)
     out["retriever_ids"] = Retriever(x, idx, mesh=mesh).retrieve(q, k=K, beam=BEAM)
     return out
+
+
+def drill_scenario(mesh, inp: dict) -> dict:
+    """The reference's S = 8 shard-failure drill (``_torch_shard_reference``'s
+    ``DRILL``) through ``ServeLoop`` over the mesh: rank 0 runs the loop on
+    a fake clock, the other ranks ``serve_follower``, each under the same
+    fault plan.  Rank 0 records the drill as the reference writes
+    ``drill.json``; every rank records its injector's events and calls,
+    the shards down at the end, and what it followed."""
+    from _torch_shard_reference import DRILL
+
+    from repro_torch.distributed.serving import ShardedServingIndex
+    from repro_torch.launch.serve_loop import ServeLoop, serve_follower
+    from repro_torch.testing.faults import FaultPlan, inject_faults, poison_queries
+
+    class FakeClock:
+        def __init__(self):
+            self.t = 0.0
+
+        def __call__(self):
+            return self.t
+
+    ssv = ShardedServingIndex.from_graph(inp["graph"], inp["x"], int(inp["start"]), mesh=mesh)
+    qp, rows = poison_queries(inp["q"], 0.05, seed=DRILL["poison_seed"])
+    out = {}
+    with inject_faults(ssv, FaultPlan(**DRILL["plan"])) as inj:
+        if mesh.rank == 0:
+            log = []
+            with ServeLoop(ssv, clock=FakeClock(), on_event=lambda k, d: log.append([k, d]),
+                           **DRILL["loop"]) as loop:
+                rids = [loop.submit(qi) for qi in qp]
+                res = loop.run_until_drained()
+                for _ in range(12):
+                    res += loop.step()
+                    if not loop.index.down_shards:
+                        break
+            out["drill"] = dict(
+                rids=rids, poisoned=rows.tolist(), down_after=list(ssv.down_shards),
+                results=[[r.rid, None if r.ids is None else r.ids.tolist(), r.error, r.phase,
+                          r.partial, r.op_point] for r in res],
+                counters=dict(loop.counters), events=log,
+                injector=[[k, c, d] for k, c, d in inj.events], calls=inj.calls)
+        else:
+            out["followed"] = dict(serve_follower(ssv))
+    out.update(injector=[[k, c, d] for k, c, d in inj.events], calls=inj.calls,
+               down_after=list(ssv.down_shards), search_restored="search" not in vars(ssv))
+    return {"drill_json": np.array(json.dumps(out))}
+
+
+def follower_fault_scenario(mesh, inp: dict) -> dict:
+    """What ``serve_follower`` drops and what it raises.  With every shard
+    tombstoned on every rank, rank 0 sends a search: ``AllShardsDown``
+    comes on every rank alike before any collective, and the followers
+    drop it and follow on.  Then rank 0 sends a tombstone that fails on
+    the followers alone (their ``mark_shard_down`` raises, as a device
+    fault would): each follower raises it out of ``serve_follower``.  A
+    tombstone reaches no collective, so rank 0 is not left waiting.  Each
+    rank records what it met."""
+    from repro_torch.distributed.serving import AllShardsDown, ShardedServingIndex
+    from repro_torch.launch.serve_loop import serve_follower
+
+    ssv = ShardedServingIndex.from_graph(inp["graph"], inp["x"], int(inp["start"]), mesh=mesh)
+    for s in range(ssv.n_shards):
+        ssv.mark_shard_down(s)
+    search = ("search", (inp["q"][:4],), dict(k=K, beam=BEAM))
+    if mesh.rank == 0:
+        # the commands the loop's ``_call`` sends, sent as they are
+        mesh.broadcast(search)
+        got = _raises(AllShardsDown, lambda: ssv.search(*search[1], **search[2]))
+        mesh.broadcast(("mark_shard_down", (0,), {}))
+        ssv.mark_shard_down(0)
+        return {"follower_fault": np.array(f"rank0 AllShardsDown={bool(got)}")}
+
+    def fault(shard):
+        raise RuntimeError(f"device fault on rank {mesh.rank} alone")
+
+    ssv.mark_shard_down = fault
+    try:
+        serve_follower(ssv)
+        met = "returned"
+    except Exception as e:  # noqa: BLE001 (recorded for the test)
+        met = f"{type(e).__name__}: {e}"
+    return {"follower_fault": np.array(met)}
 
 
 def _raises(exc, fn) -> np.bool_:
@@ -211,7 +305,11 @@ def main(out_dir: str, rank: int, world: int, build_inputs: str, shard_inputs: s
             inp["graph"], inp["x"], int(inp["start"]), mesh=serve_mesh, **kw)
         res.update(serve_scenarios(pack, inp["q"], serve_mesh.n_shards))
         res.update({f"entry_{k}": v for k, v in entry_scenarios(serve_mesh, inp).items()})
-        res["serve_loop_refused"] = _raises(ValueError, lambda: ServeLoop(pack()))
+        # the loop runs on rank 0 only: every other rank follows it
+        if mesh.rank > 0:
+            res["serve_loop_refused"] = _raises(ValueError, lambda: ServeLoop(pack()))
+        res.update(drill_scenario(with_shards(8), inp))
+        res.update(follower_fault_scenario(with_shards(8), inp))
     finally:
         mesh.close()
     np.savez(out_dir / f"rank{rank}.npz", **res)

@@ -1046,3 +1046,32 @@ def test_hcnng_on_the_card_equals_cpu(cuda):
     wg, ws, _ = baselines.build_hcnng(x, baselines.HCNNGParams(**kw), device="cpu")
     np.testing.assert_array_equal(g, wg)
     assert s == ws
+
+
+# ------------------------------------------------------- the memory audit --
+
+def test_memory_audit_is_clean_on_the_card(cuda):
+    """Every registered program measured on the card, swept, held to its
+    workspace model and priced at the BigANN-1B envelope: no finding."""
+    from repro_torch.analysis import memory_audit as ma
+
+    records = {}
+    findings = ma.audit_all(device=cuda, records=records)
+    assert findings == [], [f.render() for f in findings]
+    assert {"stream_step", "merge_segmented", "merge_flat", "final_prune_step",
+            "serving_engine", "serving_engine_int8"} <= set(records)
+
+
+def test_memory_ledger_matches_each_spec_io_on_the_card(cuda):
+    """At each base point the card's ledger counts exactly the argument
+    bytes the spec's ``io`` computes, and the donated arguments are
+    written in place (the segmented fold's kernel, the prune step)."""
+    from repro_torch.analysis import memory_audit as ma
+
+    for spec in ma.default_specs():
+        ledger = ma.measure(spec, spec.base, cuda)
+        io = spec.io(spec.base)
+        assert ledger["argument_bytes"] == io["argument"], spec.name
+        assert ledger["alias_bytes"] == ledger["donated_bytes"] == io["donated"], spec.name
+        assert ledger["output_bytes"] + ledger["alias_bytes"] == io["output"], spec.name
+        assert ledger["temp_bytes"] >= 0, spec.name

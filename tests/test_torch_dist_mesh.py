@@ -17,6 +17,7 @@ Tolerance: exact everywhere.  The data are integers (every float32 sum is
 exact in any order) and the exchanges only move bytes, so every rank's
 graph, dists, reservoir rows, stats, packing, ids and telemetry are held
 bit for bit."""
+import json
 import os
 import pathlib
 import subprocess
@@ -232,24 +233,70 @@ def test_entry_points_on_every_rank(runs, world):
 def test_exchanges_equal_the_one_process_functions(runs, world):
     """``all_to_all`` (int32, bool and int8 payloads), ``all_gather`` and
     ``psum`` over gloo give each rank its share of the list functions'
-    result, at L = 1 and 2 shards a rank."""
+    result, at L = 1 and 2 shards a rank; ``broadcast`` gives every rank
+    rank 0's tensors and object."""
     for rank, got in enumerate(runs["ranks"][world]):
         checks = {k: bool(v) for k, v in got.items() if k.split("_", 1)[1] in
                   ("all_to_all_int32", "all_to_all_bool", "all_to_all_int8", "all_gather",
-                   "psum")}
-        assert len(checks) == 10 and all(checks.values()), (rank, checks)
+                   "psum", "broadcast")}
+        assert len(checks) == 12 and all(checks.values()), (rank, checks)
 
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_refusals_on_every_rank(runs, world):
     """Shards that do not divide over the ranks raise ``ValueError`` and the
     default device ``RuntimeError`` without a card, on every rank and
-    before the group is joined (no rank hangs); ``ServeLoop`` refuses an
-    index spread over several ranks."""
-    for got in runs["ranks"][world]:
+    before the group is joined (no rank hangs); ``ServeLoop`` runs on rank
+    0 and refuses to run on any other rank, which follows it instead."""
+    for rank, got in enumerate(runs["ranks"][world]):
         assert bool(got["refused_indivisible"])
         assert bool(got["refused_no_card"])
-        assert bool(got["serve_loop_refused"])
+        assert bool(got["serve_loop_refused"]) if rank > 0 else "serve_loop_refused" not in got
+
+
+@pytest.fixture(scope="module")
+def reference_drill(tmp_path_factory):
+    return json.loads((_torch_shard_reference.reference_dir(tmp_path_factory)
+                       / "drill.json").read_text())
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_serve_loop_drill_on_every_rank(runs, world, reference_drill):
+    """The reference's S = 8 shard-failure drill through ``ServeLoop`` over
+    W gloo ranks: rank 0's results, counters, events, injected faults and
+    ``down_after`` equal ``drill.json`` exactly; every follower followed
+    every search, probe and tombstone to rank 0's close, saw the same
+    injected faults and health, and returned cleanly."""
+    ranks = [json.loads(str(got["drill_json"])) for got in runs["ranks"][world]]
+    lead = ranks[0]
+    assert lead["drill"] == reference_drill
+    rows = reference_drill["poisoned"]
+    assert sorted(r[0] for r in lead["drill"]["results"] if r[2]) == rows
+    assert len(lead["drill"]["results"]) == len(reference_drill["rids"])
+    marked = lead["drill"]["counters"]["shards_marked_down"]
+    for rank, got in enumerate(ranks):
+        assert got["injector"] == lead["drill"]["injector"], rank
+        assert got["calls"] == lead["drill"]["calls"], rank
+        assert got["down_after"] == [] and got["search_restored"], rank
+        if rank:
+            followed = got["followed"]
+            # each search and each probe passed the patched search once; the
+            # failure each tombstone followed raised on the follower too
+            assert followed["search"] + followed["probe_shard"] == got["calls"], rank
+            assert followed["mark_shard_down"] == marked == followed["raised"], rank
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_follower_drops_shared_errors_and_raises_its_own(runs, world):
+    """``serve_follower`` drops an error every rank raises alike before the
+    first collective (``AllShardsDown``) and follows on, and raises one of
+    its own rank's (a fault on that rank alone) instead of waiting in the
+    next broadcast while rank 0 enters a collective."""
+    for rank, got in enumerate(runs["ranks"][world]):
+        met = str(got["follower_fault"])
+        want = ("rank0 AllShardsDown=True" if rank == 0
+                else f"RuntimeError: device fault on rank {rank} alone")
+        assert met == want, (rank, met)
 
 
 # ------------------------------------------------------------- in one process --
@@ -263,6 +310,8 @@ def test_one_process_mesh_is_the_list_functions():
     for got, want in zip(mesh.all_to_all(sends), m.all_to_all(sends)):
         assert torch.equal(got, want)
     assert torch.equal(mesh.psum([torch.tensor([i]) for i in range(4)]), torch.tensor([6]))
+    obj = {"q": np.arange(3)}
+    assert mesh.broadcast(obj) is obj
     assert list(m.ShardMesh(8, rank=2, world=4).local) == [4, 5]
     assert bi.all_to_all is m.all_to_all and bi.psum is m.psum
 

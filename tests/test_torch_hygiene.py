@@ -1,4 +1,5 @@
-"""Boundaries of the port: it imports neither JAX nor the JAX package,
+"""Boundaries of the port: it (its package, ``chip_smoke.py`` and its
+examples ``examples/torch_*.py``) imports neither JAX nor the JAX package,
 builds nothing at import, defaults to the card and raises without one,
 and ``chip_smoke.py`` refuses to report a result anywhere but on a card
 with the repository beside it."""
@@ -26,7 +27,8 @@ def _imported_roots(path: pathlib.Path) -> set[str]:
     return roots
 
 
-@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+                         + sorted((ROOT / "examples").glob("torch_*.py")),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_reference(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "flax", "optax"}

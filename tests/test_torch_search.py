@@ -77,6 +77,32 @@ def test_merge_block_matches_jax(seed):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("seed", (0, 1, 2))
+def test_merge_block_ranks_ties_and_repeats_as_jax(seed):
+    """A block wider than the beam, with repeated ids, equal distances,
+    -0.0 beside +0.0, NaN and padding: the port's sorted ranks place every
+    entry where the reference's pairwise counts do (the reference's one-hot
+    sums write a -0.0 distance as +0.0, so the values compare as numbers)."""
+    rng = np.random.default_rng(100 + seed)
+    nq, beam, m = 8, 6, 40
+    vals = np.array([0.0, -0.0, 0.5, 1.0, 1.0, 2.0, np.inf, np.nan], np.float32)
+    ids = np.full((nq, beam), -1, np.int32)
+    ds = np.full((nq, beam), np.inf, np.float32)
+    for r in range(nq):
+        live = int(rng.integers(0, beam + 1))
+        row_ids = rng.choice(30, live, replace=False).astype(np.int32)
+        row_ds = rng.choice(vals[:6], live)
+        order = np.lexsort((row_ids, row_ds))
+        ids[r, :live], ds[r, :live] = row_ids[order], row_ds[order]
+    vis = rng.random((nq, beam)) < 0.5
+    bids = rng.integers(-1, 30, (nq, m)).astype(np.int32)
+    bds = rng.choice(vals, (nq, m))
+    want = jbs.merge_block(*(jnp.asarray(a) for a in (ids, ds, vis, bids, bds)))
+    got = bs.merge_block(*(_t(a) for a in (ids, ds, vis, bids, bds)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 # ---------------------------------------------------------------- engine ---
 
 @pytest.mark.parametrize("expansions", (1, 2, 4, 8))
