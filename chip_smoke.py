@@ -208,6 +208,19 @@ Phases (any failure exits non-zero before the last line is printed):
    streaming stage's peak holds its reservoir and one chunk's edges, and
    that peak, like the whole build's, grows by less than one chunk's edge
    buffer.
+12. the static contract checker (``repro_torch.analysis.lint``) with every
+   pass on the card, which must give zero findings: the kernel contracts
+   (ptxas' registers, spills and shared memory against each kernel's
+   ``__launch_bounds__`` at every swept shape, and each kernel held to its
+   plain version over the edges of its wrapper's admitted range, on
+   poisoned allocator blocks and on inputs 4 bytes past a 16-byte
+   boundary), the hot-path audit (host syncs counted by the dispatch spy
+   and by ``torch.cuda.set_sync_debug_mode``, beside the spy's count on the
+   CPU; float64; donation; launch-shape stability), the mesh audit and
+   the memory audit.  Logged: each kernel function's resources at its
+   largest swept shape, each swept shape's error, the sync counts and each
+   pass's seconds; the counters are set to 0 before it, and each row of
+   the ``kernels`` line gains its ``phase12_launches``.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -229,7 +242,6 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
-EPS32 = 2.0 ** -23           # float32 machine epsilon
 RECALL_FLOOR = 0.90          # recall@10 at beam 128, full size
 BEAMS = (32, 64, 128)
 # recall@10 a downcast serving copy may lose against float32, at every beam.
@@ -305,6 +317,7 @@ def phase_kernels(x, xg, seed: int) -> dict:
     (``merge_inputs``)."""
     import torch
 
+    from repro_torch.analysis import contracts
     from repro_torch.core import sketch
     from repro_torch.core.leaf import emit_knn_edges
     from repro_torch.kernels import edge_hash, leaf_knn
@@ -335,7 +348,7 @@ def phase_kernels(x, xg, seed: int) -> dict:
     # ulps of the norm terms, which cancel for near neighbours
     max_sq = float((xg * xg).sum(dim=1).max())
     err = (gd[fin] - hd[fin]).abs()
-    check(bool((err <= 1e-5 * hd[fin].abs() + 32 * EPS32 * max_sq).all()),
+    check(bool((err <= contracts.tf32_limit(hd[fin], max_sq)).all()),
           f"leaf_topk Gaussian dists beyond tolerance (max {float(err.max())})")
     err = float(err.max())
     idx_agree = float((gi == hi).float().mean())
@@ -353,8 +366,8 @@ def phase_kernels(x, xg, seed: int) -> dict:
     nbytes = float(ids.numel() * 4 + rows * d * 4 + ki.numel() * 8)
     tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     out["leaf_topk"] = dict(
-        max_abs_err=err, gaussian_idx_agreement=idx_agree, tolerance="exact on integer "
-        "data; Gaussian |err| <= 1e-5 |d| + 32 eps max|x|^2",
+        max_abs_err=err, gaussian_idx_agreement=idx_agree,
+        tolerance=contracts.TF32_TOL,
         ms=cuda_ms(lambda: leaf_knn.leaf_topk(x, ids, k), 10),
         plain_ms=cuda_ms(lambda: leaf_knn.leaf_topk_plain(x, ids, k, block=16), 2),
         flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
@@ -377,7 +390,7 @@ def phase_kernels(x, xg, seed: int) -> dict:
     del kh, skg
     nbytes = float(sk.numel() * 4 + e * 8 + e * 4)
     out["edge_hashes"] = dict(
-        max_abs_err=0.0, tolerance="bit-exact", edges=e,
+        max_abs_err=0.0, tolerance=contracts.EXACT, edges=e,
         valid_share=float((src >= 0).float().mean()),
         ms=cuda_ms(lambda: edge_hash.edge_hashes(sk, src, dst), 20),
         plain_ms=cuda_ms(lambda: edge_hash.edge_hashes_plain(sk, src, dst), 3),
@@ -501,6 +514,7 @@ def merge_stats(pair) -> dict:
     bytes these rows need (``merge_live_bytes``)."""
     import torch
 
+    from repro_torch.analysis import contracts
     from repro_torch.kernels import segmented_merge
 
     a, b = pair
@@ -516,7 +530,7 @@ def merge_stats(pair) -> dict:
         work[0] = tuple(t.clone() for t in a)
 
     return dict(
-        max_abs_err=0.0, tolerance="bit-exact", valid_slots_per_row=[
+        max_abs_err=0.0, tolerance=contracts.EXACT, valid_slots_per_row=[
             float((a.ids >= 0).sum() / n), float((b.ids >= 0).sum() / n),
             float((want[0] >= 0).sum() / n)],
         rows_b_empty=float(((b.ids >= 0).sum(1) == 0).float().mean()),
@@ -536,6 +550,7 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
     int8 packing; each also on the Gaussian mixture the data is made from."""
     import torch
 
+    from repro_torch.analysis import contracts
     from repro_torch.core.metrics import point_norms
     from repro_torch.kernels import gather_distance, gather_distance_int8
     from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
@@ -566,9 +581,8 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
                   f"gather_distance {name} {metric} inf pattern")
             # l2 and mips: a few ulps of |q|^2 + |p|^2 (the expansion cancels
             # for near points); cosine is O(1)
-            slack = 1e-5 if metric == "cosine" else 16 * EPS32 * scale[fin]
             diff = (gg[fin] - gw[fin]).abs()
-            check(bool((diff <= 1e-5 * gw[fin].abs() + slack).all()),
+            check(bool((diff <= contracts.gather_limit(gw[fin], scale[fin], metric)).all()),
                   f"gather_distance {name} {metric} Gaussian beyond tolerance "
                   f"(max {float(diff.max())})")
             if metric == "l2":
@@ -591,8 +605,7 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
     rows = torch.unique(gids[gids >= 0]).numel()
     common = gids.numel() * 8 + nq * d * 4
     out = dict(
-        max_abs_err=errs["float32"], tolerance="exact on integer data (l2, mips); Gaussian "
-        "|err| <= 1e-5 |d| + 16 eps (|q|^2 + |p|^2) (l2, mips), 1e-5 |d| + 1e-5 (cosine)",
+        max_abs_err=errs["float32"], tolerance=contracts.GATHER_TOL,
         valid_share=valid / gids.numel(), distinct_rows=rows,
         ms=cuda_ms(lambda: gather_distance.gather_distance(x, nrm, q, gids), 20),
         plain_ms=cuda_ms(lambda: gather_distance.gather_distance_plain(x, nrm, q, gids), 3),
@@ -614,8 +627,8 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
     q_norms = point_norms(q)
     args8 = (sv8.points, sv8.scales, sv8.norms, q, q_norms, gids)
     out8 = dict(
-        max_abs_err=0.0, tolerance="bit-exact on integer and Gaussian data, all three "
-        "metrics", valid_share=valid / gids.numel(), distinct_rows=rows,
+        max_abs_err=0.0, tolerance=contracts.GATHER8_TOL,
+        valid_share=valid / gids.numel(), distinct_rows=rows,
         ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8(*args8), 20),
         plain_ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8_plain(*args8), 3),
         library=None, library_ms=None,
@@ -850,9 +863,10 @@ def phase_full(x, q, seed: int, dev) -> dict:
 def gaussian_pairwise(dist, xg, pos, metric: str) -> dict:
     """``dist(a, b)`` ([1, M, N] float32) on the Gaussian points ``xg``
     against the rows ``pos`` of them (phase 5's leaders), held against
-    ``pairwise_distance_plain`` to 1e-5 |d| + 32 eps max|x|^2, phase 1's
-    tolerance: ``max_abs_err``, ``within_tolerance`` and the largest
-    error's share of its limit (``worst_share``)."""
+    ``pairwise_distance_plain`` to phase 1's tolerance
+    (``contracts.tf32_limit``): ``max_abs_err``, ``within_tolerance`` and
+    the largest error's share of its limit (``worst_share``)."""
+    from repro_torch.analysis import contracts
     from repro_torch.kernels import distance
 
     a, b = xg[None], xg[pos][None]
@@ -860,7 +874,7 @@ def gaussian_pairwise(dist, xg, pos, metric: str) -> dict:
     err = dist(a, b).sub_(want).abs_()
     max_err = float(err.max())
     max_sq = float((xg * xg).sum(dim=1).max())
-    share = float(err.div_(want.abs_().mul_(1e-5).add_(32 * EPS32 * max_sq)).max())
+    share = float(err.div_(contracts.tf32_limit(want, max_sq)).max())
     return dict(max_abs_err=max_err, within_tolerance=share <= 1.0, worst_share=share)
 
 
@@ -895,6 +909,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     import torch
 
     from repro_torch import kernels
+    from repro_torch.analysis import contracts
     from repro_torch.core.leader_assign import leader_assign
     from repro_torch.core.rbc import RBCParams, carve_chunks
     from repro_torch.kernels import distance, topk
@@ -945,8 +960,8 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     out["pairwise_distance"] = dict(
         max_abs_err=gs["max_abs_err"], gaussian_worst_share_of_tolerance=gs["worst_share"],
-        tolerance="exact on integer data below 2048 (every sum below 2^24); Gaussian "
-        "|err| <= 1e-5 |d| + 32 eps max|x|^2",
+        tolerance=contracts.TF32_TOL + " (integer data below 2048, every sum below "
+        "2^24)",
         shape=[1, n, n_leaders, d], launches=launches["pairwise_distance"],
         ms=cuda_ms(lambda: distance.pairwise_distance(a, b, metric), 5),
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b, metric), 2),
@@ -961,7 +976,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     check(all(torch.equal(g, w) for g, w in zip(got, want)), "rowwise_topk != plain")
     del got, want
     out["rowwise_topk"] = dict(
-        max_abs_err=0.0, tolerance="exact (ids and values)", k=f,
+        max_abs_err=0.0, tolerance=contracts.TOPK_TOL, k=f,
         launches=launches["rowwise_topk"],
         ms=cuda_ms(lambda: topk.rowwise_topk(dk, f), 10),
         plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, f), 2),
@@ -996,7 +1011,8 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     # yardstick for the store-bound floor, not the same function
     a0, b0t = a8[0], b8[0].T
     out["pairwise_distance_int8"] = dict(
-        max_abs_err=0.0, tolerance="exact (int32)", launches=launches["pairwise_distance_int8"],
+        max_abs_err=0.0, tolerance=contracts.INT32_TOL,
+        launches=launches["pairwise_distance_int8"],
         ms=cuda_ms(lambda: distance.pairwise_distance_int8(a8, b8), 5),
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_int8_plain(a8, b8), 2),
         library=None, library_ms=None, cross_term_library="torch._int_mm",
@@ -1065,6 +1081,7 @@ def level1_kernels(x, gauss, level1) -> dict:
     kernel, plain and library times and bounds."""
     import torch
 
+    from repro_torch.analysis import contracts
     from repro_torch.core import rbc
     from repro_torch.kernels import distance, topk
 
@@ -1082,7 +1099,7 @@ def level1_kernels(x, gauss, level1) -> dict:
     want = distance.pairwise_distance_plain(pg, lg)
     err = (distance.pairwise_distance(pg, lg) - want).abs()
     max_sq = float((xg * xg).sum(dim=1).max())
-    check(bool((err <= 1e-5 * want.abs() + 32 * EPS32 * max_sq).all()),
+    check(bool((err <= contracts.tf32_limit(want, max_sq)).all()),
           f"pairwise_distance Gaussian dists beyond tolerance at the level-1 shape "
           f"(max {float(err.max())})")
     del xg, pg, lg, want
@@ -2657,6 +2674,50 @@ def phase_examples_audit(x_np, seed: int, n_bounded: int) -> dict:
     return out
 
 
+def phase_lint() -> dict:
+    """Phase 12: ``lint.run_all`` with every pass on the card, one pass at
+    a time (for its seconds), after setting the launch counters to 0; any
+    finding fails the phase.  Returns the launches, seconds and records."""
+    from repro_torch import kernels
+    from repro_torch.analysis import hotpath_audit, lint
+
+    kernels.reset_launch_counts()
+    records, seconds, findings = {}, {}, []
+    for name in lint.PASSES:
+        t0 = time.perf_counter()
+        findings += lint.run_all(passes=(name,), device="cuda", records=records)
+        seconds[name] = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    kern = records["kernels"]
+    for spec_name, rec in kern.items():
+        if not isinstance(rec, dict) or "resources" not in rec:
+            continue
+        for fn, r in rec["resources"].items():
+            log("phase12 resources", fn, json.dumps(r))
+        log("phase12 sweep", spec_name, json.dumps(rec["sweep"]))
+    # the spy's sync counts on the CPU beside the card's (spy and debug mode)
+    cpu = {}
+    hotpath_audit.audit_hot_paths("cpu", records=cpu)
+    syncs = {name: dict(cpu_model=cpu[name]["syncs"], card_model=r["syncs"],
+                        card_debug_mode=r["card_syncs"], budget=r["budget"],
+                        card_ops=r.get("card_ops"), stray=r.get("stray"))
+             for name, r in records["hotpath"]["programs"].items()}
+    log("phase12 syncs", json.dumps(syncs))
+    log("phase12 shapes", json.dumps(records["hotpath"]["shapes"]))
+    log("phase12 mesh", json.dumps(records["mesh"], default=str))
+    log("phase12 seconds", json.dumps(dict(seconds, limits=kern.get("limits"))))
+    check(findings == [], "lint findings on the card:\n"
+          + "\n".join(f.render() for f in findings))
+    for spec_counter, n in launches.items():
+        check(n > 0, f"phase 12 launched no {spec_counter} kernel")
+    return dict(launches=launches, seconds=seconds, syncs=syncs)
+
+
+def _sites(replaces: tuple) -> str:
+    """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
+    return " and :".join([replaces[0]] + [r.rpartition(":")[2] for r in replaces[1:]])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2769,28 +2830,23 @@ def main() -> int:
     t0 = time.perf_counter()
     audit = phase_examples_audit(x_np, args.seed, dist_tile(args.n))
     log("phase11 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
 
-    # name -> (CUDA source, the TPU kernel's pallas_call, launch counter,
-    # the path whose run the launches are read from)
-    sources = {
-        "leaf_topk": ("leaf_knn.cu", "src/repro/kernels/leaf_knn.py:114", "leaf_knn", "build"),
-        "edge_hashes": ("edge_hash.cu", "src/repro/kernels/edge_hash.py:58", "edge_hash",
-                        "build"),
-        "merge_sorted_reservoirs": ("segmented_merge.cu",
-                                    "src/repro/kernels/segmented_merge.py:104",
-                                    "segmented_merge", "build"),
-        "gather_distance": ("gather_distance.cu",
-                            "src/repro/kernels/gather_distance.py:179 and :407",
-                            "gather_distance", "float32"),
-        "gather_distance_int8": ("gather_distance_int8.cu",
-                                 "src/repro/kernels/gather_distance.py:275 and :499",
-                                 "gather_distance_int8", "int8"),
-        "pairwise_distance": ("distance.cu", "src/repro/kernels/distance.py:91",
-                              "pairwise_distance", "static build"),
-        "pairwise_distance_int8": ("distance.cu", "src/repro/kernels/distance.py:123",
-                                   "pairwise_distance_int8", "quantized"),
-        "rowwise_topk": ("topk.cu", "src/repro/kernels/topk.py:70", "rowwise_topk",
-                         "static build")}
+    t0 = time.perf_counter()
+    lint_out = phase_lint()
+    log("phase12 s", round(time.perf_counter() - t0, 3))
+
+    # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
+    # counter come from the contract registry; the path whose run its
+    # launches are read from
+    from repro_torch.analysis import contracts
+
+    paths = {"leaf_topk": "build", "edge_hashes": "build", "merge_sorted_reservoirs": "build",
+             "gather_distance": "float32", "gather_distance_int8": "int8",
+             "pairwise_distance": "static build", "pairwise_distance_int8": "quantized",
+             "rowwise_topk": "static build"}
+    sources = {spec.name: (spec.source, _sites(spec.replaces), spec.counter, paths[spec.name])
+               for spec in contracts.REGISTRY}
     # phase 9's runs: the distributed build at S = 1 and 8 and its variants
     p9 = {**{f"S{s}": dist[f"S{s}"]["launches"] for s in (1, DIST_SHARDS)},
           "two_tiles": dist["two_tiles"]["launches"],
@@ -2846,6 +2902,8 @@ def main() -> int:
         row.update(phase10_launches={k: v[counter] for k, v in mesh["launches"].items()})
         # phase 11: the examples and the bounded-memory builds
         row.update(phase11_launches={k: v[counter] for k, v in audit["launches"].items()})
+        # phase 12: the contract checker's sweep and programs
+        row.update(phase12_launches=lint_out["launches"][counter])
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

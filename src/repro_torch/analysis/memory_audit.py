@@ -48,7 +48,9 @@ search body, which needs a mesh of several cards.
 
 On the CPU torch keeps no allocator statistics: ``ledger_available`` is
 False there and ``audit_all`` reports a skip with zero findings, as the
-reference does without ``memory_analysis()``.
+reference does without ``memory_analysis()``.  ``Finding`` is the lint's
+(``analysis.lint``); ``python -m repro_torch.analysis.lint --pass memory``
+runs ``audit_all`` with the other passes' rules beside it.
 
     python -m repro_torch.analysis.memory_audit [--device cuda:0]
 """
@@ -62,6 +64,8 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.analysis.lint import Finding
 
 WORKSPACE_TOL = 2.0        # PIPM004: model x tol upper bound on temp
 WORKSPACE_SLACK = 2 << 20  # PIPM004: absolute slack for small constants
@@ -81,18 +85,6 @@ ENV_HALO = 0.10
 
 def _report(msg: str) -> None:
     print(f"  [mem] {msg}", file=sys.stderr)
-
-
-@dataclasses.dataclass(frozen=True)
-class Finding:
-    rule: str       # e.g. "PIPM001"
-    path: str       # repo-relative file
-    line: int       # 0: not line-anchored
-    symbol: str     # the program the finding anchors to
-    message: str
-
-    def render(self) -> str:
-        return f"{self.path}:{self.line}: {self.rule} [{self.symbol}] {self.message}"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels.segmented_merge import merge_sorted_reservoirs
 from repro_torch.kernels.topk import lex_key, ordered, stable_argsort
 
@@ -51,7 +52,10 @@ class Reservoir(NamedTuple):
         return self.ids.shape[-1]
 
 
-def reservoir_init(n: int, l_max: int, device="cpu") -> Reservoir:
+def reservoir_init(n: int, l_max: int, device=None) -> Reservoir:
+    """An empty [n, l_max] reservoir on ``device`` (default: the card,
+    raising without one): ids -1, hashes 0, dists +inf."""
+    device = resolve_device(device)
     return Reservoir(
         ids=torch.full((n, l_max), INVALID_ID, dtype=torch.int32, device=device),
         hashes=torch.zeros((n, l_max), dtype=torch.int32, device=device),

@@ -41,6 +41,11 @@ SIGNATURES = {
     "pipnn_pairwise_distance": [P, P, I, I, I, I, I, P, P],
     "pipnn_pairwise_distance_int8": [P, P, I, I, I, I, P, P],
     "pipnn_rowwise_topk": [P, L, I, I, P, P, P],
+    # launch plans (the dynamic shared memory a launch requests; no launch)
+    "pipnn_leaf_topk_plan": [I, I, I, P, P],
+    "pipnn_merge_sorted_reservoirs_plan": [I, P],
+    "pipnn_pairwise_distance_plan": [P],
+    "pipnn_pairwise_distance_int8_plan": [P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -112,6 +117,19 @@ def library() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def plan_value(name: str, *args) -> list[int]:
+    """Call the C plan entry ``name`` with the int ``args`` and as many
+    ``long long`` / ``int`` out-slots as its signature has pointers past
+    them; returns their values.  ``ValueError`` when the entry refuses the
+    shape (a launch there would fail with the same code)."""
+    outs = [ctypes.c_longlong() if i == 0 else ctypes.c_int()
+            for i in range(len(SIGNATURES[name]) - len(args))]
+    rc = getattr(library(), name)(*args, *(ctypes.addressof(o) for o in outs))
+    if rc != 0:
+        raise ValueError(f"{name}{args}: the launch refuses this shape (cudaError {rc})")
+    return [o.value for o in outs]
 
 
 def check(rc: int, name: str) -> None:

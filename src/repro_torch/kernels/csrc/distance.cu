@@ -599,6 +599,19 @@ cudaError_t launch_int8(const void* a, const void* b, int B, int M, int N, int D
 
 }  // namespace
 
+// The dynamic shared memory a launch of each kernel requests (the ring,
+// the same at every shape).  For the contract checker
+// (repro_torch.analysis.contracts); launches nothing.
+PIPNN_EXPORT int pipnn_pairwise_distance_plan(long long* smem) {
+  *smem = (long long)F_SMEM;
+  return cudaSuccess;
+}
+
+PIPNN_EXPORT int pipnn_pairwise_distance_int8_plan(long long* smem) {
+  *smem = (long long)i8::SMEM;
+  return cudaSuccess;
+}
+
 // a [B, M, D] f32, b [B, N, D] f32 -> out [B, M, N] f32
 PIPNN_EXPORT int pipnn_pairwise_distance(const void* a, const void* b, int B, int M, int N, int D,
                                          int metric, void* out, void* stream) {

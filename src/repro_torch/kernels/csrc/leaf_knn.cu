@@ -627,6 +627,12 @@ cudaError_t launch_vec(const float* pts, const int* leaf_ids, int n_leaves, int 
   return cudaGetLastError();
 }
 
+// the list length K that serves k: k itself up to MAX_REG_K, else the next
+// wide length (16 or 32); 0 outside 1..32
+__host__ __device__ constexpr int list_len(int k) {
+  return k < 1 || k > 32 ? 0 : k <= MAX_REG_K ? k : k <= 16 ? 16 : 32;
+}
+
 // k slots a row from the top-K lists (k == K up to MAX_REG_K)
 template <int K>
 cudaError_t launch(const float* pts, const int* leaf_ids, int n_leaves, int C, int d, int metric,
@@ -666,8 +672,24 @@ PIPNN_EXPORT int pipnn_leaf_topk(const void* pts, const void* leaf_ids, int n, i
     case 8: return launch<8>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
     default:
       // k = 9..32 run the next wide list length and write its first k slots
-      if (k >= 9 && k <= 16) return launch<16>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
-      if (k >= 17 && k <= 32) return launch<32>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+      if (list_len(k) == 16) return launch<16>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
+      if (list_len(k) == 32) return launch<32>(p, ids, n_leaves, C, d, metric, k, oi, od, s);
       return cudaErrorInvalidValue;
   }
+}
+
+// The launch's plan at (C, d, k), from the functions the launch uses: its
+// list length K (the kernel instantiation's first template argument) and
+// the dynamic shared memory it requests.  For the contract checker
+// (repro_torch.analysis.contracts); launches nothing.
+PIPNN_EXPORT int pipnn_leaf_topk_plan(int C, int d, int k, long long* smem, int* K) {
+  const int kk = list_len(k);
+  if (kk == 0) return cudaErrorInvalidValue;
+  *K = kk;
+  *smem = 0;
+  if (C <= 0) return cudaSuccess;
+  const int da = resident_depth(C, d, kk);
+  if (da == 0) return cudaErrorInvalidValue;
+  *smem = (long long)smem_bytes(C, da, kk);
+  return cudaSuccess;
 }

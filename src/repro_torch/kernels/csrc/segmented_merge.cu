@@ -271,14 +271,25 @@ merge_kernel(int* a_ids, int* a_h, float* a_d, const int* __restrict__ b_ids,
               threadIdx.x & 31);
 }
 
+// a block's dynamic shared memory at reservoir width l: each warp's workspace
+size_t block_smem(int l) { return WARPS * warp_words(l) * sizeof(int); }
+
 }  // namespace
+
+// The dynamic shared memory a launch at reservoir width l requests, from the
+// function the launch uses.  For the contract checker
+// (repro_torch.analysis.contracts); launches nothing.
+PIPNN_EXPORT int pipnn_merge_sorted_reservoirs_plan(int l, long long* smem) {
+  *smem = l <= 0 ? 0 : (long long)block_smem(l);
+  return cudaSuccess;
+}
 
 // a_* [n, l] (merged in place), b_* [n, l]; ids/hashes int32, dists f32
 PIPNN_EXPORT int pipnn_merge_sorted_reservoirs(void* a_ids, void* a_h, void* a_d, const void* b_ids,
                                                const void* b_h, const void* b_d, long long n, int l,
                                                void* stream) {
   if (n <= 0 || l <= 0) return cudaGetLastError();
-  const size_t smem = WARPS * warp_words(l) * sizeof(int);
+  const size_t smem = block_smem(l);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

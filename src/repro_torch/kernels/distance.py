@@ -106,3 +106,15 @@ def pairwise_distance_int8(a: torch.Tensor, b: torch.Tensor):
     _build.check(rc, "pairwise_distance_int8")
     launches_int8 += 1
     return out
+
+
+def launch_plan() -> dict:
+    """``pairwise_distance``'s launch plan (``pipnn_pairwise_distance_plan``):
+    the dynamic shared memory of its ring, the same at every shape."""
+    return {"smem": _build.plan_value("pipnn_pairwise_distance_plan")[0]}
+
+
+def launch_plan_int8() -> dict:
+    """``pairwise_distance_int8``'s launch plan
+    (``pipnn_pairwise_distance_int8_plan``), as ``launch_plan``."""
+    return {"smem": _build.plan_value("pipnn_pairwise_distance_int8_plan")[0]}

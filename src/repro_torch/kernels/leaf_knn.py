@@ -105,3 +105,13 @@ def leaf_topk(points: torch.Tensor, leaf_ids: torch.Tensor, k: int,
     _build.check(rc, "leaf_topk")
     launches += 1
     return out_idx, out_dist
+
+
+def launch_plan(c: int, d: int, k: int) -> dict:
+    """The kernel's launch plan for leaves of ``c`` slots, depth ``d`` and
+    ``k``, from the C function the launch itself uses
+    (``pipnn_leaf_topk_plan``): the list length ``K`` (the instantiation's
+    first template argument) and the dynamic shared memory in bytes.
+    Launches nothing; needs the built library."""
+    smem, kk = _build.plan_value("pipnn_leaf_topk_plan", c, d, k)
+    return {"smem": smem, "K": kk}

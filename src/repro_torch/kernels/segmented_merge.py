@@ -88,3 +88,10 @@ def merge_sorted_reservoirs(a_ids, a_hashes, a_dists, b_ids, b_hashes, b_dists):
     _build.check(rc, "merge_sorted_reservoirs")
     launches += 1
     return a_ids, a_hashes, a_dists
+
+
+def launch_plan(l: int) -> dict:
+    """The kernel's launch plan at reservoir width ``l``, from the C function
+    the launch uses (``pipnn_merge_sorted_reservoirs_plan``): the dynamic
+    shared memory in bytes.  Launches nothing; needs the built library."""
+    return {"smem": _build.plan_value("pipnn_merge_sorted_reservoirs_plan", l)[0]}

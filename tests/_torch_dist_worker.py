@@ -44,15 +44,20 @@ def build_scenarios(mesh_for, tags, x, hp) -> dict:
     tile each) its tile step's output on the way: this rank's reservoir
     rows and the stats.  ``mesh_for(s)`` is a mesh of s shards or the
     shard count itself (then on the CPU)."""
+    from repro_torch.analysis import mesh_audit
     from repro_torch.launch import build_index as bi
 
     cases = {c[0]: c for c in CASES}
-    make_tile_step, steps = bi.make_tile_step, []
+    make_tile_step, steps, replication = bi.make_tile_step, [], []
 
     def recorded(mesh, p):
         step = make_tile_step(mesh, p)
 
         def tile_step(*a):
+            if not isinstance(mesh, int):
+                # PIPS002: this rank's operands of the step
+                replication.extend(f.render()
+                                   for f in mesh_audit.audit_replication_tile(mesh, p, *a))
             steps.append(step(*a))
             return steps[-1]
         return tile_step
@@ -76,6 +81,7 @@ def build_scenarios(mesh_for, tags, x, hp) -> dict:
                 out[f"{tag}_stats"] = stats.numpy()
     finally:
         bi.make_tile_step = make_tile_step
+    out["mesh_pips002_build"] = np.array(json.dumps(replication))
     return out
 
 
@@ -133,6 +139,28 @@ def serve_scenarios(pack, q, n_shards: int) -> dict:
     except AllShardsDown:
         out["all_down_raised"] = np.bool_(True)
     return out
+
+
+def mesh_audit_scenario(mesh, inp: dict) -> dict:
+    """PIPS001 and PIPS002 inside the world: this rank's float32 and int8
+    packings hold only its shards, and a search over the real group calls
+    ``all_gather`` only, outside its shard bodies."""
+    from repro_torch.analysis import mesh_audit
+    from repro_torch.distributed.serving import ShardedServingIndex
+
+    rec = mesh_audit.recording(mesh)
+    pack = lambda **kw: ShardedServingIndex.from_graph(   # noqa: E731
+        inp["graph"], inp["x"], int(inp["start"]), mesh=rec, **kw)
+    held, findings = {}, []
+    for kw in ({}, {"dtype": "int8"}):
+        findings += mesh_audit.audit_replication_serving(pack(**kw), held if not kw else None)
+    sv = pack()
+    del rec.calls[:]
+    with mesh_audit.shard_bodies():
+        sv.search(inp["q"][:4], k=K, beam=BEAM)
+    return {"mesh_pips002": np.array(json.dumps([f.render() for f in findings])),
+            "mesh_points_bytes": np.int64(held["points"]),
+            "mesh_pips001_calls": np.array(json.dumps(rec.calls))}
 
 
 def exchange_scenarios(mesh) -> dict:
@@ -305,6 +333,7 @@ def main(out_dir: str, rank: int, world: int, build_inputs: str, shard_inputs: s
             inp["graph"], inp["x"], int(inp["start"]), mesh=serve_mesh, **kw)
         res.update(serve_scenarios(pack, inp["q"], serve_mesh.n_shards))
         res.update({f"entry_{k}": v for k, v in entry_scenarios(serve_mesh, inp).items()})
+        res.update(mesh_audit_scenario(serve_mesh, inp))
         # the loop runs on rank 0 only: every other rank follows it
         if mesh.rank > 0:
             res["serve_loop_refused"] = _raises(ValueError, lambda: ServeLoop(pack()))

@@ -82,7 +82,7 @@ def _ref_tile(jitted, kw, x, hp, res=None):
 
 def _port_tile(kw, x, hp, res=None):
     p = bi.DistBuildParams.tiny(**kw)
-    res = res if res is not None else reservoir_init(p.n_tile, p.l_max)
+    res = res if res is not None else reservoir_init(p.n_tile, p.l_max, device="cpu")
     r, st = bi.make_tile_step(1, p)(torch.from_numpy(x), hp, res)
     return [a.numpy() for a in r], st.numpy()
 
@@ -322,7 +322,7 @@ def test_tile_step_stats(gauss):
     p = bi.DistBuildParams.tiny()
     hpl = bi._sketch.make_hyperplanes(0, p.m_bits, p.dim)
     _, stats = bi.make_tile_step(1, p)(torch.from_numpy(gauss), hpl,
-                                       reservoir_init(p.n_tile, p.l_max))
+                                       reservoir_init(p.n_tile, p.l_max, device="cpu"))
     edges_recv, replicas_recv, drops = stats.tolist()
     assert replicas_recv == gauss.shape[0] * p.f0
     assert edges_recv > gauss.shape[0]

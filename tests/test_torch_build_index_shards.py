@@ -48,7 +48,7 @@ def test_tile_step_equals_reference(ref, inputs, case):
     tag, s, n, kw, _ = case
     p = bi.DistBuildParams.tiny(l0=16, **kw)
     res, stats = bi.make_tile_step(s, p)(torch.from_numpy(inputs["x"][:n]), inputs["hp"],
-                                         reservoir_init(p.n_tile, p.l_max))
+                                         reservoir_init(p.n_tile, p.l_max, device="cpu"))
     for name, got in zip(("ids", "hashes", "dists"), res):
         np.testing.assert_array_equal(got.numpy(), ref[f"{tag}_res_{name}"])
     np.testing.assert_array_equal(stats.numpy(), ref[f"{tag}_stats"])
@@ -80,5 +80,5 @@ def test_every_replica_arrives_at_each_shard_count(inputs):
     p = bi.DistBuildParams.tiny(l0=16)
     for s in (1, 2, 8):
         _, st = bi.make_tile_step(s, p)(torch.from_numpy(inputs["x"][:N]), inputs["hp"],
-                                        reservoir_init(p.n_tile, p.l_max))
+                                        reservoir_init(p.n_tile, p.l_max, device="cpu"))
         assert st[1] == N * p.f0 and st[2] == 0

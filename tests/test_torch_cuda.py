@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.analysis import contracts
 from repro_torch.core.hashprune import hashprune_flat
 from repro_torch.core.metrics import point_norms
 from repro_torch.kernels import (distance, edge_hash, gather_distance, gather_distance_int8,
@@ -985,7 +986,7 @@ def test_tile_step_kernel_route_equals_plain_route(cuda, variant, n_shards):
     x = _outlier_points(p.n_tile, 16, seed=1)
     hp = dyadic_hyperplanes(3, p.m_bits, p.dim)
     step = bi.make_tile_step(n_shards, p)
-    want, want_st = step(torch.from_numpy(x), hp, reservoir_init(p.n_tile, p.l_max))
+    want, want_st = step(torch.from_numpy(x), hp, reservoir_init(p.n_tile, p.l_max, device="cpu"))
     kernels.reset_launch_counts()
     got, got_st = step(torch.from_numpy(x).to(cuda), hp,
                        reservoir_init(p.n_tile, p.l_max, device=cuda))
@@ -1075,3 +1076,47 @@ def test_memory_ledger_matches_each_spec_io_on_the_card(cuda):
         assert ledger["alias_bytes"] == ledger["donated_bytes"] == io["donated"], spec.name
         assert ledger["output_bytes"] + ledger["alias_bytes"] == io["output"], spec.name
         assert ledger["temp_bytes"] >= 0, spec.name
+
+
+# ------------------------------------------------ the contract checker --
+
+def test_kernel_resources_hold_their_launch_bounds_on_the_card(cuda):
+    """PIPK001 (and PIPK005's instantiation census): ptxas' report of the
+    built library against every kernel's launch bounds, at every swept
+    shape's launch plan."""
+    from repro_torch.kernels import _build
+
+    text = _build.build().with_suffix(".log").read_text()
+    limits = contracts.card_limits(cuda)
+    for spec in contracts.REGISTRY:
+        rec = {}
+        findings = contracts.check_resources(spec, text, cuda, limits, rec)
+        assert findings == [], [f.render() for f in findings]
+        assert rec, spec.name
+
+
+@pytest.mark.parametrize("name", [s.name for s in contracts.REGISTRY])
+def test_kernel_sweep_equals_plain_on_poisoned_and_misaligned_inputs(cuda, name):
+    """PIPK002-004: every swept shape at the edges of the wrapper's range,
+    misaligned inputs included, equals the plain version at the registry's
+    tolerance on poisoned allocator blocks, and launches its kernel."""
+    rec = {}
+    findings = contracts.sweep_kernel(contracts.spec_by_name(name), cuda, rec)
+    assert findings == [], [f.render() for f in findings]
+    assert all(r.get("launches", 1) == 1 for r in rec.values())
+    spec = contracts.spec_by_name(name)
+    if not spec.in_place:
+        assert all(r["poisoned_outputs"] >= 1 for r in rec.values() if "refused" not in r)
+
+
+def test_sync_counts_agree_with_the_card_debug_mode(cuda):
+    """PIPJ001 on the card: each program at its declared budget, and the
+    spy's count equal to the sync points ``torch.cuda.set_sync_debug_mode``
+    sees."""
+    from repro_torch.analysis import hotpath_audit
+
+    records = {}
+    findings = hotpath_audit.audit_hot_paths(cuda, records=records)
+    assert findings == [], [f.render() for f in findings]
+    for name, r in records.items():
+        assert r["card_syncs"] == r["syncs"] == r["budget"], (name, r)

@@ -211,6 +211,23 @@ def test_search_on_every_rank_equals_reference_and_one_process(runs, world, case
 
 
 @pytest.mark.parametrize("world", WORLDS)
+def test_mesh_audit_on_every_rank(runs, world):
+    """PIPS002: each rank's packings and tile-step operands hold only its
+    S / W shards (its points are 1 / W of the one-process packing's bytes);
+    PIPS001: a search over the real group calls ``all_gather`` alone, and
+    never inside a shard body."""
+    s = WORLDS[world]["serve"]
+    whole = runs["single"][s]["f32_points"].nbytes
+    for rank, got in enumerate(runs["ranks"][world]):
+        assert json.loads(str(got["mesh_pips002"])) == [], rank
+        assert json.loads(str(got["mesh_pips002_build"])) == [], rank
+        assert int(got["mesh_points_bytes"]) * world == whole, rank
+        calls = json.loads(str(got["mesh_pips001_calls"]))
+        assert calls and {c for c, _ in calls} == {"all_gather"}, (rank, calls)
+        assert not any(inside for _, inside in calls), rank
+
+
+@pytest.mark.parametrize("world", WORLDS)
 def test_all_shards_down_raises_on_every_rank(runs, world):
     s = WORLDS[world]["serve"]
     assert bool(runs["serve_ref"][s]["all_down_raised"])

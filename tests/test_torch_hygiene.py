@@ -75,6 +75,18 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
         Retriever(x, idx)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Retriever(x)
+    # the empty reservoir
+    from repro_torch.core.hashprune import reservoir_init
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reservoir_init(16, 4)
+    assert reservoir_init(16, 4, device="cpu").ids.device.type == "cpu"
+    # the kernel-contract pass of the lint
+    from repro_torch.analysis import contracts
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        contracts.check_kernel_contracts()
+    assert contracts.check_kernel_contracts(device="cpu") == []
 
 
 def test_full_precision_matmul_is_pinned():

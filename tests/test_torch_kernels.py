@@ -197,7 +197,7 @@ def _producer_output(producer):
         a[m: 2 * m] = a[e // 2: e // 2 + m]
     edges = [torch.from_numpy(a) for a in (src, dst, hashes, dist)]
     if producer == "reservoir_init":
-        return reservoir_init(n, l_max)
+        return reservoir_init(n, l_max, device="cpu")
     if producer.startswith("hashprune_flat"):
         return hashprune_flat(*edges, n_points=n, l_max=l_max)
     a, b = _reservoir_pair(3, n=n, l_max=l_max)
