@@ -221,6 +221,26 @@ Phases (any failure exits non-zero before the last line is printed):
    largest swept shape, each swept shape's error, the sync counts and each
    pass's seconds; the counters are set to 0 before it, and each row of
    the ``kernels`` line gains its ``phase12_launches``.
+13. the roofline (``repro_torch.roofline``).  (a) Each program of the
+   memory audit at its canonical point, and the mesh audit's sharded
+   search, tile step and final prune at S = 8 on its one-process model,
+   walked once under the dispatch walker and timed without it (CUDA
+   events, the median of 5 runs after a warm-up, fresh inputs each):
+   the compute, memory and collective terms of its work model, the
+   dominant term, the bound, time over bound and dispatched over work.
+   (b) The default ``build`` of all the points and phase 3's float32
+   search at beams 32 / 64 / 128, walked once each, their bounds beside
+   phase 3's build seconds and search seconds (no second timed build).
+   (c) The hot-path audit's programs walked on the card and on the CPU on
+   the same inputs (made on the CPU): equal operations by class, bytes
+   and wire bytes; every kernel launch of every walk charged its work
+   model (the walker's count equals the launch counters, set to 0 before
+   each walk); no program's and no kernel row's time (phases 1, 4, 5, 6
+   and 9) under its bound / 1.05; every record complete.  The roofline
+   table (``markdown_table``) is printed; each row of the ``kernels``
+   line gains its ``phase13_launches``.  Every kernel row's bound comes
+   from its kernel's work model (``work`` beside its wrapper) and
+   ``roofline.H100``.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -236,12 +256,6 @@ import subprocess
 import sys
 import time
 
-# f32 CUDA-core peak, TF32 tensor-core peak, int8 peak and memory rate of
-# one H100 SXM (NVIDIA's data sheet, dense)
-PEAK_F32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_INT8_OPS = 1979e12
-PEAK_BYTES = 3.35e12
 RECALL_FLOOR = 0.90          # recall@10 at beam 128, full size
 BEAMS = (32, 64, 128)
 # recall@10 a downcast serving copy may lose against float32, at every beam.
@@ -280,12 +294,32 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def bound(flops: float, nbytes: float, peak_ops: float = PEAK_F32_FLOPS) -> dict:
-    """The least time the card could take: the larger of the operations at
-    ``peak_ops`` and the bytes at the memory rate."""
-    by_ops = flops / peak_ops > nbytes / PEAK_BYTES
-    return dict(flops=flops, bytes=nbytes, bound_by="operations" if by_ops else "bytes",
-                bound_ms=1e3 * max(flops / peak_ops, nbytes / PEAK_BYTES))
+def bound(work: dict) -> dict:
+    """A kernel's row fields from its work model (``work`` beside its
+    wrapper): its operations by class and bytes, and the least time the
+    card could take for them (``roofline.H100``: the larger of the
+    operations at their classes' peaks and the bytes at the memory rate)."""
+    from repro_torch.roofline import H100
+
+    return dict(ops=dict(work["ops"]), bytes=work["bytes"], **H100.bound(work))
+
+
+def tf32_bound(work: dict) -> dict:
+    """``bound`` of a 3xTF32 kernel's work (``leaf_topk``,
+    ``pairwise_distance``), with its float32 products (a third of its TF32
+    operations) and their bound on the CUDA cores in float32 beside it."""
+    from repro_torch.roofline import H100
+
+    flops = work["ops"]["tf32"] / 3.0
+    return dict(bound(work), flops=flops, tf32_flops=work["ops"]["tf32"],
+                bound_f32_cuda_core_ms=H100.bound(dict(work, ops={"f32": flops}))["bound_ms"])
+
+
+def read_ms(nbytes: float) -> float:
+    """Milliseconds to read ``nbytes`` at the card's memory rate."""
+    from repro_torch.roofline import H100
+
+    return H100.bound({"bytes": nbytes})["bound_ms"]
 
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
@@ -354,26 +388,16 @@ def phase_kernels(x, xg, seed: int) -> dict:
     idx_agree = float((gi == hi).float().mean())
     del gi, gd, hi, hd, fin
     wide = leaf_wide(x, ids)
-    # work this chunk needs: one d-long product (2d FLOPs) for each unordered
-    # pair of distinct valid points of a leaf, as the distances are
-    # symmetric; each distinct point row read once, the ids read and the
-    # outputs written once.  The kernel keeps the float32 result with three
-    # TF32 products per f32 product (3xTF32), so its bound is those at the
-    # TF32 peak; the f32 CUDA-core bound of the same products is reported
-    # beside it.
-    flops = float(d * (sizes * (sizes - 1)).sum())
-    rows = torch.unique(ids[ids >= 0]).numel()
-    nbytes = float(ids.numel() * 4 + rows * d * 4 + ki.numel() * 8)
-    tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
+    # the chunk's work (``leaf_knn.work``): the kernel keeps the float32
+    # result with three TF32 products per f32 product (3xTF32), so its
+    # bound is those at the TF32 peak; the f32 CUDA-core bound of the same
+    # products is reported beside it
     out["leaf_topk"] = dict(
         max_abs_err=err, gaussian_idx_agreement=idx_agree,
         tolerance=contracts.TF32_TOL,
         ms=cuda_ms(lambda: leaf_knn.leaf_topk(x, ids, k), 10),
         plain_ms=cuda_ms(lambda: leaf_knn.leaf_topk_plain(x, ids, k, block=16), 2),
-        flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
-        bound_ms=tc["bound_ms"],
-        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES),
-        **wide)
+        **tf32_bound(leaf_knn.work(x, ids, k)), **wide)
     log("phase1 leaf_topk", json.dumps(out["leaf_topk"]))
 
     # edge hashes: the chunk's bidirected edges (2 * chunk * C * k entries)
@@ -388,13 +412,12 @@ def phase_kernels(x, xg, seed: int) -> dict:
                       edge_hash.edge_hashes_plain(skg, src, dst)),
           "edge_hashes != plain on Gaussian sketches")
     del kh, skg
-    nbytes = float(sk.numel() * 4 + e * 8 + e * 4)
     out["edge_hashes"] = dict(
         max_abs_err=0.0, tolerance=contracts.EXACT, edges=e,
         valid_share=float((src >= 0).float().mean()),
         ms=cuda_ms(lambda: edge_hash.edge_hashes(sk, src, dst), 20),
         plain_ms=cuda_ms(lambda: edge_hash.edge_hashes_plain(sk, src, dst), 3),
-        bytes=nbytes, bound_by="bytes", bound_ms=1e3 * nbytes / PEAK_BYTES)
+        **bound(edge_hash.work(sk, src, dst)))
     log("phase1 edge_hashes", json.dumps(out["edge_hashes"]))
     del src, dst
 
@@ -481,37 +504,12 @@ def merge_inputs(x, inputs: dict) -> dict:
     return dict(early=early, late=(res, reservoir(chunks[-1])), chunks=len(chunks))
 
 
-def merge_live_bytes(a_ids, b_ids, out_ids) -> float:
-    """Bytes the merge must move on these inputs, in whole 32-byte sectors
-    of each row.  Live slots are a sorted prefix, so a side's live count is
-    known from its id row up to the first -1: slots [0, min(n + 1, l)).  A
-    row whose B side is empty is R(A) already: B's first id is all it
-    reads.  Any other row reads both id rows that far, the live prefixes of
-    A's and B's hashes and dists, and writes slots [0, max(n_out, nA)) of
-    the three arrays."""
-    import torch
-
-    n, l = a_ids.shape
-    start = torch.arange(n, device=a_ids.device, dtype=torch.int64) * l * 4
-
-    def sectors(count):
-        end = start + count.long() * 4
-        return torch.where(count > 0, (end - 1) // 32 - start // 32 + 1, 0)
-
-    na, nb = (a_ids >= 0).sum(1), (b_ids >= 0).sum(1)
-    n_out = (out_ids >= 0).sum(1)
-    touched = nb > 0
-    per_row = torch.where(
-        touched, sectors(torch.clamp(na + 1, max=l)) + sectors(torch.clamp(nb + 1, max=l))
-        + 2 * sectors(na) + 2 * sectors(nb) + 3 * sectors(torch.maximum(n_out, na)),
-        sectors(torch.ones_like(nb)))
-    return 32.0 * float(per_row.sum())
-
-
 def merge_stats(pair) -> dict:
     """The merge kernel on one input pair: bit-exact against its plain
     version, kernel and plain times, live counts, and the bound of the
-    bytes these rows need (``merge_live_bytes``)."""
+    bytes these rows need (``segmented_merge.work``: each id row up to its
+    first -1, the live prefixes and the written slots, in 32-byte
+    sectors; B's first id alone where B is empty)."""
     import torch
 
     from repro_torch.analysis import contracts
@@ -522,22 +520,22 @@ def merge_stats(pair) -> dict:
     want = segmented_merge.merge_sorted_reservoirs_plain(*a, *b)
     got = segmented_merge.merge_sorted_reservoirs(*(t.clone() for t in a), *b)
     check(all(torch.equal(g, w) for g, w in zip(got, want)), "merge != plain")
-    live = float(merge_live_bytes(a.ids, b.ids, want[0]))
+    work = segmented_merge.work(a.ids, b.ids, want[0])
     del got
-    work = [None]
+    fresh_a = [None]
 
     def fresh():
-        work[0] = tuple(t.clone() for t in a)
+        fresh_a[0] = tuple(t.clone() for t in a)
 
     return dict(
         max_abs_err=0.0, tolerance=contracts.EXACT, valid_slots_per_row=[
             float((a.ids >= 0).sum() / n), float((b.ids >= 0).sum() / n),
             float((want[0] >= 0).sum() / n)],
         rows_b_empty=float(((b.ids >= 0).sum(1) == 0).float().mean()),
-        ms=cuda_ms(lambda: segmented_merge.merge_sorted_reservoirs(*work[0], *b), 10,
+        ms=cuda_ms(lambda: segmented_merge.merge_sorted_reservoirs(*fresh_a[0], *b), 10,
                    setup=fresh),
         plain_ms=cuda_ms(lambda: segmented_merge.merge_sorted_reservoirs_plain(*a, *b), 2),
-        bytes=live, bound_by="bytes", bound_ms=1e3 * live / PEAK_BYTES)
+        **bound(work))
 
 
 def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
@@ -598,31 +596,31 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
                   f"gather_distance_int8 {metric} != plain on {tag} data")
         del p8g, scg
     del xg, qg, xg16, sq, scale
-    # bytes: a row and a norm (and for int8 a scale) for each distinct valid
-    # id, read once (-1 ids read nothing), every id and output slot, and
-    # the queries (and for int8 their norm terms)
+    # the work (``gather_distance.work``, ``gather_distance_int8.work``): a
+    # row and a norm (and for int8 a scale) for each distinct valid id, read
+    # once (-1 ids read nothing), every id and output slot, and the queries
+    # (and for int8 their norm terms)
     valid = int((gids >= 0).sum())
     rows = torch.unique(gids[gids >= 0]).numel()
-    common = gids.numel() * 8 + nq * d * 4
     out = dict(
         max_abs_err=errs["float32"], tolerance=contracts.GATHER_TOL,
         valid_share=valid / gids.numel(), distinct_rows=rows,
         ms=cuda_ms(lambda: gather_distance.gather_distance(x, nrm, q, gids), 20),
         plain_ms=cuda_ms(lambda: gather_distance.gather_distance_plain(x, nrm, q, gids), 3),
-        library=None, library_ms=None, **bound(0.0, float(rows * (d * 4 + 4) + common)),
+        library=None, library_ms=None, **bound(gather_distance.work(x, nrm, q, gids)),
         # every valid slot's row read from device memory, with no reuse
         # across queries: the most the kernel can gain without an order of
         # queries chosen by the caller
-        no_reuse_ms=1e3 * valid * d * 4 / PEAK_BYTES)
+        no_reuse_ms=read_ms(valid * d * 4))
     x16 = sv16.points
-    b16 = bound(0.0, float(rows * (d * 2 + 4) + common))
+    b16 = bound(gather_distance.work(x16, nrm, q, gids))
     out.update(
         bf16_max_abs_err=errs["bfloat16"],
         bf16_ms=cuda_ms(lambda: gather_distance.gather_distance(x16, nrm, q, gids), 20),
         bf16_plain_ms=cuda_ms(
             lambda: gather_distance.gather_distance_plain(x16, nrm, q, gids), 3),
         bf16_bound_ms=b16["bound_ms"], bf16_bytes=b16["bytes"],
-        bf16_no_reuse_ms=1e3 * valid * d * 2 / PEAK_BYTES)
+        bf16_no_reuse_ms=read_ms(valid * d * 2))
     log("phase4 gather_distance", json.dumps(out))
     q_norms = point_norms(q)
     args8 = (sv8.points, sv8.scales, sv8.norms, q, q_norms, gids)
@@ -631,9 +629,8 @@ def phase_gather(servings, q, gauss_x, gauss_q, truth) -> dict:
         valid_share=valid / gids.numel(), distinct_rows=rows,
         ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8(*args8), 20),
         plain_ms=cuda_ms(lambda: gather_distance_int8.gather_distance_int8_plain(*args8), 3),
-        library=None, library_ms=None,
-        **bound(2.0 * valid * d, float(rows * (d + 8) + common + nq * 4), PEAK_INT8_OPS),
-        no_reuse_ms=1e3 * valid * d / PEAK_BYTES)
+        library=None, library_ms=None, **bound(gather_distance_int8.work(*args8)),
+        no_reuse_ms=read_ms(valid * d))
     log("phase4 gather_distance_int8", json.dumps(out8))
     return {"gather_distance": out, "gather_distance_int8": out8}
 
@@ -955,9 +952,6 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
     # the kernel forms each product as three TF32 products on the tensor
     # cores (3xTF32): its bound is those at the TF32 peak; the f32
     # CUDA-core bound of the same products stands beside it
-    flops = 2.0 * n * n_leaders * d
-    nbytes = 4.0 * (n * d + n_leaders * d + n * n_leaders)
-    tc = bound(3.0 * flops, nbytes, PEAK_TF32_FLOPS)
     out["pairwise_distance"] = dict(
         max_abs_err=gs["max_abs_err"], gaussian_worst_share_of_tolerance=gs["worst_share"],
         tolerance=contracts.TF32_TOL + " (integer data below 2048, every sum below "
@@ -967,9 +961,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b, metric), 2),
         library="torch.cdist (the square root of the same matrix)",
         library_ms=cuda_ms(lambda: torch.cdist(a, b), 3),
-        flops=flops, tf32_flops=3.0 * flops, bytes=nbytes, bound_by=tc["bound_by"],
-        bound_ms=tc["bound_ms"],
-        bound_f32_cuda_core_ms=1e3 * max(flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES))
+        **tf32_bound(distance.work(a, b, metric)))
     log("phase5 pairwise_distance", json.dumps(out["pairwise_distance"]))
 
     got, want = topk.rowwise_topk(dk, f), topk.rowwise_topk_plain(dk, f)
@@ -982,7 +974,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
         plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, f), 2),
         library="torch.topk(largest=False)",
         library_ms=cuda_ms(lambda: torch.topk(dk, f, largest=False), 10),
-        **bound(0.0, 4.0 * n * n_leaders + 8.0 * n * f))
+        **bound(topk.work(dk, f)))
     # the static carve's level 0 selects f0r = fanout(0) + bucket_spill of
     # the same leaders
     k0 = carve_chunks(n, RBCParams(seed=seed))["f0r"]
@@ -993,7 +985,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
         k=k0, ms=cuda_ms(lambda: topk.rowwise_topk(dk, k0), 10),
         plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, k0), 2),
         library_ms=cuda_ms(lambda: torch.topk(dk, k0, largest=False), 10),
-        **bound(0.0, 4.0 * n * n_leaders + 8.0 * n * k0))
+        **bound(topk.work(dk, k0)))
     log("phase5 rowwise_topk", json.dumps(out["rowwise_topk"]))
     del dk
     torch.cuda.empty_cache()
@@ -1017,8 +1009,7 @@ def phase_leader(x_np, gauss, seed: int) -> dict:
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_int8_plain(a8, b8), 2),
         library=None, library_ms=None, cross_term_library="torch._int_mm",
         cross_term_library_ms=cuda_ms(lambda: torch._int_mm(a0, b0t), 5),
-        **bound(2.0 * n * n_leaders * d, n * d + n_leaders * d + 4.0 * n * n_leaders,
-                PEAK_INT8_OPS))
+        **bound(distance.work_int8(a8, b8)))
     log("phase5 pairwise_distance_int8", json.dumps(out["pairwise_distance_int8"]))
     return out
 
@@ -1103,14 +1094,13 @@ def level1_kernels(x, gauss, level1) -> dict:
           f"pairwise_distance Gaussian dists beyond tolerance at the level-1 shape "
           f"(max {float(err.max())})")
     del xg, pg, lg, want
-    flops = 2.0 * b * m * nl * d
-    tc = bound(3.0 * flops, 4.0 * (b * m * d + b * nl * d + b * m * nl), PEAK_TF32_FLOPS)
+    tc = tf32_bound(distance.work(pts, lds))
     out = {"pairwise_distance": dict(
         shape=[b, m, nl, d], max_abs_err=float(err.max()),
         ms=cuda_ms(lambda: distance.pairwise_distance(pts, lds), 20),
         plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(pts, lds), 3),
         library="torch.cdist", library_ms=cuda_ms(lambda: torch.cdist(pts, lds), 5),
-        bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=3.0 * flops,
+        bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=tc["tf32_flops"],
         bytes=tc["bytes"])}
     inf = torch.full((), float("inf"), device=x.device)
     dm = torch.where(pok[:, :, None], torch.where(lok[:, None, :], dk, inf), inf).contiguous()
@@ -1123,7 +1113,7 @@ def level1_kernels(x, gauss, level1) -> dict:
         plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dm, f1), 3),
         library="torch.topk(largest=False)",
         library_ms=cuda_ms(lambda: torch.topk(dm, f1, largest=False), 20),
-        **bound(0.0, 4.0 * b * m * nl + 8.0 * b * m * f1))
+        **bound(topk.work(dm, f1)))
     return out
 
 
@@ -2091,15 +2081,13 @@ def dist_kernels(base: dict, quant: dict) -> dict:
         dk = distance.pairwise_distance(a, b)
         check(torch.equal(dk, distance.pairwise_distance_plain(a, b)),
               f"pairwise_distance != plain at phase 9's {tag} shape")
-        flops = 2.0 * bsz * m * nl * d
-        tc = bound(3.0 * flops, 4.0 * (bsz * m * d + bsz * nl * d + bsz * m * nl),
-                   PEAK_TF32_FLOPS)
+        tc = tf32_bound(distance.work(a, b))
         out[f"pairwise_distance_{tag}"] = dict(
             shape=[bsz, m, nl, d], max_abs_err=0.0, tolerance="exact on integer data",
             ms=cuda_ms(lambda: distance.pairwise_distance(a, b), 20),
             plain_ms=cuda_ms(lambda: distance.pairwise_distance_plain(a, b), 5),
             library="torch.cdist", library_ms=cuda_ms(lambda: torch.cdist(a, b), 10),
-            bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=3.0 * flops,
+            bound_ms=tc["bound_ms"], bound_by=tc["bound_by"], tf32_flops=tc["tf32_flops"],
             bytes=tc["bytes"])
         if kw.get("leader_valid") is not None:      # masked as leader_assign masks it
             dk = torch.where(kw["leader_valid"][:, None, :], dk, inf)
@@ -2114,7 +2102,7 @@ def dist_kernels(base: dict, quant: dict) -> dict:
             plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dk, k), 5),
             library="torch.topk(largest=False)",
             library_ms=cuda_ms(lambda: torch.topk(dk, k, largest=False), 20),
-            **bound(0.0, 4.0 * bsz * m * nl + 8.0 * bsz * m * k))
+            **bound(topk.work(dk, k)))
         del dk, got, want
 
     (dl, k), _ = base["inputs"]["leaf_topk"]
@@ -2129,7 +2117,7 @@ def dist_kernels(base: dict, quant: dict) -> dict:
         plain_ms=cuda_ms(lambda: topk.rowwise_topk_plain(dl, k), 5),
         library="torch.topk(largest=False)",
         library_ms=cuda_ms(lambda: torch.topk(dl, k, largest=False), 20),
-        **bound(0.0, 4.0 * bsz * m * n + 8.0 * bsz * m * k))
+        **bound(topk.work(dl, k)))
     del got, want
 
     (qa, qb), _ = quant["inputs"]["int8"]
@@ -2146,7 +2134,7 @@ def dist_kernels(base: dict, quant: dict) -> dict:
         cross_term_library=f"torch._int_mm, {bsz} calls (the products alone)",
         cross_term_library_ms=cuda_ms(
             lambda: [torch._int_mm(qa[i], qb[i].T) for i in range(bsz)], 20),
-        **bound(2.0 * bsz * m * n * d, bsz * (m + n) * d + 4.0 * bsz * m * n, PEAK_INT8_OPS))
+        **bound(distance.work_int8(qa, qb)))
     del dk
 
     fold, _ = base["inputs"]["fold"]
@@ -2713,6 +2701,196 @@ def phase_lint() -> dict:
     return dict(launches=launches, seconds=seconds, syncs=syncs)
 
 
+ROOFLINE_SLACK = 1.05      # a time under its bound / this means the model overcounts
+ROOFLINE_REPS = 5
+
+
+def _median_ms(make) -> float:
+    """Median device ms of ``fn(*args, **kwargs)`` over ``ROOFLINE_REPS`` runs after a
+    warm-up, CUDA events around each; ``make()`` gives (fn, args, kwargs)
+    afresh before each run, untimed (the programs write into their
+    arguments)."""
+    import statistics
+
+    import torch
+
+    times = []
+    for i in range(ROOFLINE_REPS + 1):
+        fn, args, kw = make()
+        torch.cuda.synchronize()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(*args, **kw)
+        b.record()
+        torch.cuda.synchronize()
+        if i:
+            times.append(a.elapsed_time(b))
+        del fn, args, kw
+    return statistics.median(times)
+
+
+def _launch_check(r, what: str, tally) -> None:
+    """Every kernel launch of the walk of ``r`` was charged: the walker's
+    charged calls equal the launch counters (set to 0 before the walk)."""
+    from repro_torch import kernels
+
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    check(r.kernel_launches == launched,
+          f"{what}: the walker charged {r.kernel_launches}, the kernels launched {launched}")
+    tally.update(launched)
+
+
+def _roofline_row(r, ms: float, **extra) -> dict:
+    bound_ms = 1e3 * r.bound_seconds()
+    row = dict(name=r.name, kind=r.kind, mesh=r.mesh, t_compute=r.t_compute,
+               t_memory=r.t_memory, t_collective=r.t_collective, dominant=r.dominant,
+               bound_ms=bound_ms, ms=ms, time_over_bound=ms / bound_ms if bound_ms else None,
+               dispatched_over_work=r.dispatched_over_work, work_ops=r.work_ops,
+               work_bytes=r.work_bytes, coll_bytes=r.coll_bytes, coll_by_op=r.coll_by_op,
+               dispatched_ops=r.dispatched_ops, dispatched_bytes=r.dispatched_bytes,
+               launches=r.kernel_launches, bytes_per_device=r.bytes_per_device, **extra)
+    check(ms >= bound_ms / ROOFLINE_SLACK,
+          f"{r.name}: {ms} ms under its bound {bound_ms} ms / {ROOFLINE_SLACK}: its work "
+          "model overcounts")
+    return row
+
+
+def _kernel_times(stats, where: str = ""):
+    """Every (where, ms, bound_ms) of the kernel rows in ``stats``, nested
+    shapes and the bfloat16 rows included."""
+    if not isinstance(stats, dict):
+        return
+    for ms_key, bound_key in (("ms", "bound_ms"), ("bf16_ms", "bf16_bound_ms"),
+                              ("late_ms", "late_bound_ms")):
+        if stats.get(ms_key) is not None and stats.get(bound_key) is not None:
+            yield f"{where}.{ms_key}", stats[ms_key], stats[bound_key]
+    for k, v in stats.items():
+        yield from _kernel_times(v, f"{where}.{k}" if where else k)
+
+
+def phase_roofline(full: dict, kstats: dict, dist_kernels: dict, x_np, q_np, seed: int) -> dict:
+    """Phase 13: the roofline (``repro_torch.roofline``).  (a) Each program
+    of the memory audit at its canonical point, and the mesh audit's
+    search, tile step and final prune at S = 8 on the one-process model,
+    walked once on the card and timed without the walker (median of
+    ``ROOFLINE_REPS`` after a warm-up): terms, dominant, bound, time over
+    bound, dispatched over work.  (b) The default ``build`` of all of
+    ``x_np`` and phase 3's float32 search at each beam, walked once each,
+    their bounds beside phase 3's times.  (c) The hot-path audit's programs
+    walked on the card and on the CPU on the same inputs: equal counts;
+    every launch of every walk charged; no program's or kernel's time under
+    its bound / ``ROOFLINE_SLACK``; every record complete."""
+    from collections import Counter
+
+    import numpy as np
+    import torch
+
+    import repro_torch
+    from repro_torch import kernels
+    from repro_torch.analysis import hotpath_audit, memory_audit, mesh_audit
+    from repro_torch.roofline import analyze_program
+    from repro_torch.roofline.analysis import RECORD_KEYS, markdown_table, record
+
+    dev = torch.device("cuda")
+    tally: Counter = Counter()
+    rows, roofs = [], []
+    t0 = time.perf_counter()
+    # (a) the registered programs
+    for spec in memory_audit.default_specs():
+        kernels.reset_launch_counts()
+        r = memory_audit.roofline_of(spec, device=dev)
+        _launch_check(r, spec.name, tally)
+        rec = record(r)
+        check(all(rec.get(k) is not None for k in RECORD_KEYS),
+              f"{spec.name}: roofline record incomplete")
+
+        def make(spec=spec):
+            prog = spec.build(spec.base, dev)
+            return prog.fn, prog.args, prog.kwargs
+
+        rows.append(_roofline_row(r, _median_ms(make), point=spec.base))
+        roofs.append(r)
+        torch.cuda.empty_cache()
+    for spec in mesh_audit.default_specs():
+        if spec.program is None:
+            continue
+        kernels.reset_launch_counts()
+        r = mesh_audit.program_roofline(spec, dev)
+        _launch_check(r, spec.name, tally)
+
+        def make(spec=spec):
+            fn, args, _ = spec.program(mesh_audit.model_mesh(mesh_audit.ROOFLINE_SHARDS, dev),
+                                       dev)
+            return fn, args, {}
+
+        rows.append(_roofline_row(r, _median_ms(make), point=f"S={mesh_audit.ROOFLINE_SHARDS}"))
+        roofs.append(r)
+    for row in rows:
+        log("phase13 program", json.dumps(row, default=str))
+    log("phase13 programs_s", round(time.perf_counter() - t0, 3))
+
+    # (b) at full width: the build and phase 3's search, walked once each
+    n, d = x_np.shape
+    params = repro_torch.PiPNNParams(seed=seed)
+    kernels.reset_launch_counts()
+    t1 = time.perf_counter()
+    rb = analyze_program(lambda: repro_torch.build(x_np, params, device=dev), name="build",
+                         kind="build", device=dev,
+                         work=lambda w: memory_audit.build_work(w, n, d, params.max_deg))
+    walk_s = time.perf_counter() - t1
+    _launch_check(rb, "the full-size build", tally)
+    index = rb.walk.out
+    check_index(index)
+    full_rows = [_roofline_row(rb, 1e3 * full["wall"], phase3="build wall_s",
+                               walked_s=walk_s, n=n)]
+    roofs.append(rb)
+    repro_torch.search(index, x_np, q_np[:100], k=10, beam=BEAMS[0], device=dev)
+    nq = q_np.shape[0]
+    r_deg = int(index.graph.shape[1])
+    for beam in BEAMS:
+        def work(w):
+            return memory_audit.search_work(w, float(np.sum(w.out[1]["hops"])), r_deg,
+                                            float(nq * d * 4 + nq * 10 * 4))
+
+        kernels.reset_launch_counts()
+        rs = analyze_program(lambda: repro_torch.search(index, x_np, q_np, k=10, beam=beam,
+                                                        with_stats=True, device=dev),
+                             name=f"search beam {beam}", kind="serve", device=dev, work=work)
+        _launch_check(rs, f"the search at beam {beam}", tally)
+        secs = full["searches"]["float32"][beam]["seconds"]
+        full_rows.append(_roofline_row(rs, 1e3 * secs, phase3="search seconds, 10,000 queries",
+                                       queries=nq))
+        roofs.append(rs)
+    del index
+    for row in full_rows:
+        log("phase13 full", json.dumps(row, default=str))
+    torch.cuda.empty_cache()
+
+    # (c) the hot-path programs: the card's walk equals the CPU's
+    same = {}
+    for prog in hotpath_audit.default_programs():
+        kernels.reset_launch_counts()
+        rc = hotpath_audit.program_roofline(prog, dev)
+        _launch_check(rc, prog.name, tally)
+        rh = hotpath_audit.program_roofline(prog, "cpu")
+        keys = ("dispatched_ops", "dispatched_bytes", "dispatched_coll_bytes", "work_ops",
+                "work_bytes", "coll_bytes", "kernel_launches")
+        got = {k: (getattr(rc, k), getattr(rh, k)) for k in keys}
+        same[prog.name] = dict(card=record(rc), cpu_equal=all(a == b for a, b in got.values()))
+        check(same[prog.name]["cpu_equal"], f"{prog.name}: the card's walk differs from the "
+              f"CPU's: {[(k, v) for k, v in got.items() if v[0] != v[1]]}")
+    log("phase13 card_vs_cpu", json.dumps(same, default=str))
+    kernel_rows = []
+    for where, ms, bound_ms in [*_kernel_times(kstats), *_kernel_times(dist_kernels, "phase9")]:
+        kernel_rows.append([where, ms, bound_ms, ms / bound_ms])
+        check(ms >= bound_ms / ROOFLINE_SLACK, f"kernel {where}: {ms} ms under its bound "
+              f"{bound_ms} ms / {ROOFLINE_SLACK}: its work model overcounts")
+    log("phase13 kernels time_over_bound", json.dumps(kernel_rows))
+    for line in markdown_table(roofs).splitlines():
+        log("phase13 table", line)
+    return dict(launches=dict(tally), programs=rows, full=full_rows)
+
+
 def _sites(replaces: tuple) -> str:
     """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
     return " and :".join([replaces[0]] + [r.rpartition(":")[2] for r in replaces[1:]])
@@ -2835,6 +3013,11 @@ def main() -> int:
     t0 = time.perf_counter()
     lint_out = phase_lint()
     log("phase12 s", round(time.perf_counter() - t0, 3))
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    roof = phase_roofline(full, kstats, dist["kernels"], x_np, q_np, args.seed)
+    log("phase13 s", round(time.perf_counter() - t0, 3))
 
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
@@ -2904,6 +3087,9 @@ def main() -> int:
         row.update(phase11_launches={k: v[counter] for k, v in audit["launches"].items()})
         # phase 12: the contract checker's sweep and programs
         row.update(phase12_launches=lint_out["launches"][counter])
+        # phase 13: the roofline's walks of the registered programs, the
+        # full-size build and searches and the hot-path programs
+        row.update(phase13_launches=roof["launches"].get(counter, 0))
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -60,6 +60,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch._patch import patched_everywhere
 from repro_torch.analysis.lint import Finding, report
 
 WIDE_DTYPES = (torch.float64, torch.complex128)
@@ -240,29 +241,6 @@ def host_crossings(spy: OpSpy, device):
         torch.Tensor.__setitem__ = setitem
 
 
-@contextlib.contextmanager
-def patched_everywhere(replacements: dict):
-    """Replace each function ``old`` by ``new`` (``{old: new}``) wherever a
-    port module holds it as a module attribute; restored on exit."""
-    done = []
-    for mod in list(sys.modules.values()):
-        if not getattr(mod, "__name__", "").startswith("repro_torch"):
-            continue
-        for attr, val in list(vars(mod).items()):
-            try:
-                new = replacements.get(val)
-            except TypeError:           # an unhashable module attribute
-                continue
-            if new is not None:
-                setattr(mod, attr, new)
-                done.append((mod, attr, val))
-    try:
-        yield
-    finally:
-        for mod, attr, val in done:
-            setattr(mod, attr, val)
-
-
 def _shape_key(args) -> tuple:
     return tuple((tuple(t.shape), str(t.dtype)) for t in _flat_tensors(args))
 
@@ -324,8 +302,8 @@ def spy_kernels(spy: OpSpy | None = None):
 
 @dataclasses.dataclass(frozen=True)
 class HotProgram:
-    """A registered hot-path program: ``build(device)`` gives (fn, args,
-    kwargs, shape); ``budget(shape, calls)`` its declared host syncs, where
+    """A registered hot-path program: ``build(device, exact=False)`` gives
+    (fn, args, kwargs, shape), on exact float data with ``exact``; ``budget(shape, calls)`` its declared host syncs, where
     ``calls`` is how often the run called ``step`` ("module:function", a
     function the program calls a fixed number of times a step; 0 without
     one); ``donated`` the argument positions it writes in place on
@@ -340,27 +318,38 @@ class HotProgram:
     donated: tuple = ()
     in_place_on: frozenset = frozenset()
     step: str | None = None
+    work: Callable | None = None      # (shape, walk) -> roofline.Work (memory_audit's models)
 
 
 def _gen(dev, seed=0):
     return torch.Generator(device=dev).manual_seed(seed)
 
 
+def _floats(shape, g, dev, exact: bool) -> torch.Tensor:
+    """Gaussian float32; ``exact``: float32 integers in [-8, 8] instead,
+    whose every sum is exact in any order, so that a kernel and its plain
+    version agree bit for bit and a program takes the same steps on the
+    card and on the CPU (``program_roofline``)."""
+    if exact:
+        return torch.randint(-8, 9, shape, generator=g, device=dev).to(torch.float32)
+    return torch.randn(shape, generator=g, device=dev)
+
+
 _ENGINE = dict(n=96, d=16, r=8, nq=4, beam=8, iters=12, expansions=2)
 
 
 def _engine_build(dtype: str, plain: bool):
-    def build(dev):
+    def build(dev, exact=False):
         from repro_torch.core import beam_search as bs
         from repro_torch.core.metrics import point_norms
         from repro_torch.kernels.gather_distance_int8 import quantize_symmetric
 
         s = dict(_ENGINE)
         g = _gen(dev)
-        x = torch.randn((s["n"], s["d"]), generator=g, device=dev)
+        x = _floats((s["n"], s["d"]), g, dev, exact)
         graph = torch.randint(0, s["n"], (s["n"], s["r"]), generator=g, device=dev,
                               dtype=torch.int32)
-        q = torch.randn((s["nq"], s["d"]), generator=g, device=dev)
+        q = _floats((s["nq"], s["d"]), g, dev, exact)
         norms = point_norms(x, "l2")
         scales = None
         if dtype == "int8":
@@ -373,7 +362,7 @@ def _engine_build(dtype: str, plain: bool):
     return build
 
 
-def _stream_build(dev):
+def _stream_build(dev, exact=False):
     from repro_torch.core import pipnn
     from repro_torch.core.hashprune import reservoir_init
     from repro_torch.core.leaf import LeafParams
@@ -381,8 +370,8 @@ def _stream_build(dev):
 
     s = dict(n=256, d=16, l_max=16, m=12, leaves=8, c=32, k=4)
     g = _gen(dev, 1)
-    x = torch.randn((s["n"], s["d"]), generator=g, device=dev)
-    sk = sketch(x, torch.randn((s["m"], s["d"]), generator=g, device=dev)).contiguous()
+    x = _floats((s["n"], s["d"]), g, dev, exact)
+    sk = sketch(x, _floats((s["m"], s["d"]), g, dev, exact)).contiguous()
     ids = torch.stack([torch.randperm(s["n"], generator=g, device=dev)[: s["c"]]
                        for _ in range(s["leaves"])]).to(torch.int32)
     ids[-1, s["c"] // 2:] = -1
@@ -403,7 +392,7 @@ def _edges(n, e, dev, seed=2):
 
 
 def _fold_build(flavor: str):
-    def build(dev):
+    def build(dev, exact=False):        # ids, hashes and uniform dists: compared, not summed
         from repro_torch.core import hashprune as hp
 
         s = dict(n=128, l_max=16, e=1024)
@@ -415,7 +404,7 @@ def _fold_build(flavor: str):
     return build
 
 
-def _topk_build(dev):
+def _topk_build(dev, exact=False):      # selections only
     from repro_torch.distributed.serving import cross_shard_topk
 
     s = dict(shards=4, nq=4, b=8, k=10)
@@ -426,13 +415,13 @@ def _topk_build(dev):
     return cross_shard_topk, (ids, ds), dict(k=s["k"]), s
 
 
-def _prune_build(dev):
+def _prune_build(dev, exact=False):
     from repro_torch.core.hashprune import INVALID_ID
     from repro_torch.core.robust_prune import final_prune_step
 
     s = dict(n=128, d=16, l_max=16, max_deg=8, chunk=64)
     g = _gen(dev, 5)
-    x = torch.randn((s["n"], s["d"]), generator=g, device=dev)
+    x = _floats((s["n"], s["d"]), g, dev, exact)
     ids = torch.randint(0, s["n"], (s["n"], s["l_max"]), generator=g, device=dev,
                         dtype=torch.int32)
     dists = torch.rand((s["n"], s["l_max"]), generator=g, device=dev)
@@ -463,7 +452,10 @@ def _engine_budget(per_step: int, once: int) -> Callable:
 
 def default_programs() -> tuple[HotProgram, ...]:
     """The registry.  Each budget is declared here, with why each sync
-    exists; its sites are ``ast_lint.HOT_FUNCTIONS``."""
+    exists; its sites are ``ast_lint.HOT_FUNCTIONS``.  Each program's work
+    model is its ``memory_audit`` spec's."""
+    from repro_torch.analysis import memory_audit as ma
+
     engine_why = ("the early-exit test reads one flag back a step (and once more where "
                   "it ends the loop), and each step's vis[rows, pos] = True copies the "
                   "number to the device (beam_search.py)")
@@ -474,26 +466,58 @@ def default_programs() -> tuple[HotProgram, ...]:
                         _engine_budget(2, 1) if (dt, plain) == ("int8", True)
                         else _engine_budget(1, 0),
                         int8_why if (dt, plain) == ("int8", True) else engine_why,
-                        step="repro_torch.core.beam_search:merge_block")
+                        step="repro_torch.core.beam_search:merge_block", work=ma.engine_work)
              for dt in ("f32", "bf16", "int8") for plain in (False, True)]
     progs += [
         HotProgram("stream_step", "src/repro_torch/core/pipnn.py", "_stream_step",
                    _stream_build, lambda s, _: _FLAT_SYNCS,
                    "the chunk's hashprune_flat sizes its scatter from five boolean masks",
-                   donated=(0,), in_place_on=frozenset({"cuda"})),
+                   donated=(0,), in_place_on=frozenset({"cuda"}), work=ma.stream_work),
         HotProgram("merge_segmented", _HP, "merge_segmented_edges", _fold_build("segmented"),
                    lambda s, _: _FLAT_SYNCS, "the chunk's hashprune_flat (five boolean masks)",
-                   donated=(0, 1, 2), in_place_on=frozenset({"cuda"})),
+                   donated=(0, 1, 2), in_place_on=frozenset({"cuda"}),
+                   work=ma.merge_segmented_work),
         HotProgram("merge_flat", _HP, "merge_flat_edges", _fold_build("flat"),
-                   lambda s, _: _FLAT_SYNCS, "hashprune_flat over the reservoir and the chunk"),
+                   lambda s, _: _FLAT_SYNCS, "hashprune_flat over the reservoir and the chunk",
+                   work=ma.merge_flat_work),
         HotProgram("cross_shard_topk", "src/repro_torch/distributed/serving.py",
-                   "cross_shard_topk", _topk_build, lambda s, _: 0, "none: a device fold"),
+                   "cross_shard_topk", _topk_build, lambda s, _: 0, "none: a device fold",
+                   work=ma.topk_work),
         HotProgram("final_prune_step", "src/repro_torch/core/robust_prune.py",
                    "final_prune_step", _prune_build, lambda s, _: 1,
                    "robust_prune_mask moves alpha to the device (torch.tensor): one copy",
-                   donated=(3, 4), in_place_on=frozenset({"cpu", "cuda"})),
+                   donated=(3, 4), in_place_on=frozenset({"cpu", "cuda"}),
+                   work=ma.final_prune_work),
     ]
     return tuple(progs)
+
+
+def to_device(obj, dev):
+    """``obj`` with every tensor in it (through tuples, named tuples,
+    lists and dicts) on ``dev``."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_device(o, dev) for o in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def program_roofline(prog: HotProgram, device):
+    """``prog`` walked once on ``device`` (``roofline.analyze_program``) on
+    the exact inputs its builder makes on the CPU, so that the card and the
+    CPU walk the same inputs and take the same steps; its work model the
+    declared one."""
+    from repro_torch.roofline import analyze_program
+
+    fn, args, kw, shape = prog.build(torch.device("cpu"), exact=True)
+    dev = torch.device(device)
+    args, kw = to_device(args, dev), to_device(kw, dev)
+    return analyze_program(fn, args, kw, name=prog.name, kind="hotpath",
+                           work=lambda walk: prog.work(shape, walk), device=dev)
 
 
 @contextlib.contextmanager

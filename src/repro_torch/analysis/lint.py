@@ -100,8 +100,9 @@ NOT_PORTED: dict[str, str] = {
                "shape-controlling parameter can silently recompile",
     "PIPM005": "a regression gate on a checked-in memory envelope is benchmark work: card "
                "numbers are gated by the port's benchmark, not by the lint",
-    "PIPM006": "the checked-in envelope record (ledger, exponents, price, roofline) it "
-               "checks belongs to that benchmark as well",
+    "PIPM006": "the checked-in envelope record (ledger, exponents, price) it checks "
+               "belongs to that benchmark as well; its roofline part is in each program's "
+               "record (memory_audit: roofline.analyze_program)",
 }
 
 # rules (or parts of them) that need the card; on the CPU they are skipped

@@ -42,9 +42,21 @@ Rules:
   PIPM004  measured temp at every lattice point is at most the workspace
            model x ``WORKSPACE_TOL`` + ``WORKSPACE_SLACK``.
 
-Not ported: PIPM005/006 (a checked-in envelope file and its regression
-gate; a gate on card numbers belongs to a benchmark) and the sharded
-search body, which needs a mesh of several cards.
+Each record also carries the program's roofline (the reference's
+PIPM006 record part; ``roofline``): the program runs once at its base
+point under the dispatch walker (``roofline.op_cost``) and its ``work``
+model (operations by class, bytes with each input read once and each
+output written once, beside ``workspace``) gives the three terms on one
+H100, the dispatched counts beside them.  A program that launches kernels
+counts its kernels' work models (``work`` beside each wrapper) and the
+inputs and outputs of its own torch stages; the engine's distance blocks
+are its gathers' models on either route (``search_work``), and its reads
+of graph rows follow its own telemetry (the steps it took).
+
+Not ported: PIPM005 and the rest of PIPM006 (a checked-in envelope file
+and its regression gate; a gate on card numbers belongs to a benchmark)
+and the sharded search body, which needs a mesh of several cards (its
+roofline is the mesh audit's, at S = 8).
 
 On the CPU torch keeps no allocator statistics: ``ledger_available`` is
 False there and ``audit_all`` reports a skip with zero findings, as the
@@ -116,6 +128,7 @@ class MemSpec:
     sweep: dict = dataclasses.field(default_factory=dict)  # param -> bound
     envelope: dict | None = None
     workspace: Callable | None = None
+    work: Callable | None = None   # (point, walk) -> roofline.Work, the least work
     note: str = ""
 
 
@@ -205,6 +218,17 @@ def price_envelope(spec: MemSpec) -> dict | None:
             "total": int(io["argument"] + io["output"] - credit + temp)}
 
 
+def roofline_of(spec: MemSpec, device="cuda"):
+    """``spec``'s program at its base point run once on ``device`` under
+    the dispatch walker: its ``roofline.CellRoofline`` (``work(base,
+    walk)`` the least work)."""
+    from repro_torch.roofline import analyze_program
+
+    prog = spec.build(spec.base, torch.device(device))
+    return analyze_program(prog.fn, prog.args, prog.kwargs, name=spec.name, kind=spec.kind,
+                           work=lambda walk: spec.work(spec.base, walk), device=device)
+
+
 def card_budget(device="cuda") -> int:
     """The card's memory in bytes (``total_memory``)."""
     return int(torch.cuda.get_device_properties(torch.device(device)).total_memory)
@@ -282,15 +306,21 @@ def audit_spec(spec: MemSpec, *, budget: int | None = None, device="cuda",
                 f"{budget / 2**30:.2f} GiB device budget")
 
     model = float(spec.workspace(spec.base)) if spec.workspace else None
+    roof = None
+    if spec.work is not None:
+        from repro_torch.roofline.analysis import record as roofline_record
+
+        roof = roofline_record(roofline_of(spec, device=device))
     record = {"path": spec.path, "kind": spec.kind, "canonical_point": dict(spec.base),
               "canonical_ledger": base_ledger, "workspace_model": model,
               "temp_over_model": ratios, "exponents": exponents, "sweep_peaks": peaks,
               "envelope_point": dict(spec.envelope) if spec.envelope else None,
-              "envelope_bytes": env, "budget_bytes": budget}
+              "envelope_bytes": env, "budget_bytes": budget, "roofline": roof}
     exps = " ".join(f"{p}^{e:.2f}" for p, e in exponents.items())
     env_s = f" env={env['total'] / 2**30:.2f}GiB" if env else ""
+    roof_s = f" roofline={roof['dominant']}" if roof else ""
     _report(f"{spec.name}: peak={base_ledger['peak'] / 2**20:.1f}MiB "
-            f"temp={base_ledger['temp_bytes'] / 2**20:.1f}MiB [{exps}]{env_s}")
+            f"temp={base_ledger['temp_bytes'] / 2**20:.1f}MiB [{exps}]{env_s}{roof_s}")
     return findings, record
 
 
@@ -307,6 +337,110 @@ def _leaf_ids(s: int, c: int, n: int, dev) -> torch.Tensor:
     (mod n)."""
     return ((torch.arange(s, device=dev)[:, None] * c + torch.arange(c, device=dev)) % n
             ).to(torch.int32)
+
+
+def _out_bytes(walk) -> float:
+    from repro_torch.roofline.op_cost import nbytes, tensors
+
+    return float(sum(nbytes(t) for t in tensors(walk.out)))
+
+
+def stream_work(point, walk):
+    """``_stream_step``'s least work: its kernels' (leaf top-k, edge hashes,
+    the segmented merge), and its torch stages' inputs and outputs: the
+    leaf lists read (8 B a slot), the E emitted edges written (12 B) and
+    read with their hashes by ``hashprune_flat`` (16 B), and the chunk's
+    [n, l] reservoir written (12 B a slot)."""
+    from repro_torch.roofline import Work
+
+    n, l = walk.args[0].ids.shape
+    lists = sum(8 * math.prod(c.out_shapes[0]) for c in walk.calls if c.counter == "leaf_knn")
+    e = sum(math.prod(c.shapes[1]) for c in walk.calls if c.counter == "edge_hash")
+    return walk.kernel_work() + Work({}, float(lists + 28 * e + 12 * n * l))
+
+
+def merge_segmented_work(point, walk):
+    """``merge_segmented_edges``' least work: the merge kernel's, and
+    ``hashprune_flat``'s: the E edges read (16 B) and the chunk's [n, l]
+    reservoir written (12 B a slot)."""
+    from repro_torch.roofline import Work
+
+    n, l = walk.args[0].shape
+    return walk.kernel_work() + Work({}, float(16 * walk.args[3].numel() + 12 * n * l))
+
+
+def merge_flat_work(point, walk):
+    """``merge_flat_edges``' least work (no kernel): the reservoir and the
+    E edges read once, the new reservoir written once; only sorts."""
+    from repro_torch.roofline import Work
+
+    n, l = walk.args[0].shape
+    return Work({}, float(24 * n * l + 16 * walk.args[3].numel()))
+
+
+def final_prune_work(point, walk):
+    """``final_prune_step``'s least work (no kernel): one d-long product for
+    each unordered pair of a row's L candidates (the RobustPrune Gram), each
+    distinct candidate row of ``x`` read once, the rows' ids and dists read
+    and their [rows, max_deg] results written once."""
+    from repro_torch.roofline import Work
+    from repro_torch.roofline.op_cost import op_class
+
+    x, ids, _, _, _, start = walk.args
+    chunk, max_deg = walk.kwargs["chunk"], walk.kwargs["max_deg"]
+    block = ids[start:start + chunk]
+    rows, lc = block.shape
+    d = x.shape[1]
+    distinct = torch.unique(block[block >= 0]).numel()
+    return Work({op_class(x.dtype): float(rows * lc * (lc - 1) * d)},
+                float(distinct * d * 4 + rows * lc * 8 + rows * max_deg * 8))
+
+
+def carve_work(point, walk):
+    """``static_leaf_ids``' least work: its kernels' (the distance and top-k
+    kernels of both levels), and its leaf matrix written once."""
+    from repro_torch.roofline import Work
+
+    return walk.kernel_work() + Work({}, _out_bytes(walk))
+
+
+def search_work(walk, n_hops: float, r: int, own_bytes: float):
+    """A beam search's least work: its distance blocks' (every gather call
+    the walk noted, launched or plain: the gather model's d-long product of
+    each valid slot, each distinct row read once a call, every id and
+    output slot), the graph row of every point it expanded (``n_hops``
+    from its telemetry, ``r`` int32 ids each), and ``own_bytes`` (its
+    queries read and its results written once)."""
+    from repro_torch.roofline import Work
+
+    return walk.kernel_work() + Work({}, n_hops * r * 4 + own_bytes)
+
+
+def engine_work(point, walk):
+    """``_beam_search_multi``'s least work (``search_work`` with its own
+    ``hops``): the same on the kernel route and the plain one, with the
+    queries read and the outputs written once."""
+    graph, q = walk.args[0], walk.args[3]
+    return search_work(walk, float(walk.out[2].sum()), graph.shape[1],
+                       q.numel() * q.element_size() + _out_bytes(walk))
+
+
+def build_work(walk, n: int, d: int, max_deg: int):
+    """``pipnn.build``'s least work over ``n`` points of width ``d``: its
+    kernels' (every launch the walk charged), the points read once, and the
+    [n, max_deg] graph and its dists written once."""
+    from repro_torch.roofline import Work
+
+    return walk.kernel_work() + Work({}, float(n * d * 4 + n * max_deg * 8))
+
+
+def topk_work(point, walk):
+    """``cross_shard_topk``'s least work (no kernel): the stacked [S, Q, B]
+    blocks read once and the [Q, k] rows written once; only selections."""
+    from repro_torch.roofline import Work
+    from repro_torch.roofline.op_cost import nbytes, tensors
+
+    return Work({}, float(sum(nbytes(t) for t in tensors(walk.args))) + _out_bytes(walk))
 
 
 def _stream_spec() -> MemSpec:
@@ -342,7 +476,7 @@ def _stream_spec() -> MemSpec:
         sweep=dict(n=DEFAULT_EXPONENT_BOUND, s=DEFAULT_EXPONENT_BOUND,
                    l_max=DEFAULT_EXPONENT_BOUND, d=DEFAULT_EXPONENT_BOUND),
         envelope=dict(n=ENV_N, d=ENV_D, l_max=ENV_L_MAX, s=1024, c=256, k=8, m=12),
-        build=build, io=io, workspace=ws)
+        build=build, io=io, workspace=ws, work=stream_work)
 
 
 def _edges(n: int, e: int, dev) -> tuple:
@@ -387,6 +521,7 @@ def _merge_spec(flavor: str) -> MemSpec:
                    e=DEFAULT_EXPONENT_BOUND),
         envelope=dict(n=ENV_N, l_max=ENV_L_MAX, e=4 * (1 << 22)),
         build=build, io=io, workspace=ws,
+        work=merge_segmented_work if flavor == "segmented" else merge_flat_work,
         note="" if flavor == "segmented" else
         "the flat fold (the oracle) returns a new reservoir and leaves its "
         "argument as it is: nothing is donated")
@@ -424,7 +559,7 @@ def _final_prune_spec() -> MemSpec:
         sweep=dict(n=DEFAULT_EXPONENT_BOUND, chunk=DEFAULT_EXPONENT_BOUND, l_max=1.6,
                    d=DEFAULT_EXPONENT_BOUND),
         envelope=dict(n=ENV_N, d=ENV_D, l_max=ENV_L_MAX, chunk=16384, max_deg=ENV_R),
-        build=build, io=io, workspace=ws,
+        build=build, io=io, workspace=ws, work=final_prune_work,
         note="l_max bound 1.6: the step's [chunk, L, L] candidate distances grow "
              "as L^2 at fixed chunk")
 
@@ -452,7 +587,7 @@ def _carve_spec() -> MemSpec:
     return MemSpec(
         name="carve_static", path="src/repro_torch/core/rbc.py", kind="build",
         base=dict(n=65536, d=32), sweep=dict(n=1.35, d=DEFAULT_EXPONENT_BOUND),
-        envelope=dict(n=ENV_N, d=ENV_D), build=build, io=io, workspace=ws,
+        envelope=dict(n=ENV_N, d=ENV_D), build=build, io=io, workspace=ws, work=carve_work,
         note="n exponent bound 1.35, the reference's: cap_b rounds up in steps "
              "of 8 and the leader count grows with n")
 
@@ -509,14 +644,15 @@ def _engine_spec() -> MemSpec:
         base=dict(_ENGINE_BASE),
         sweep=dict(n=DEFAULT_EXPONENT_BOUND, d=DEFAULT_EXPONENT_BOUND,
                    nq=DEFAULT_EXPONENT_BOUND, beam=DEFAULT_EXPONENT_BOUND),
-        envelope=dict(_ENGINE_ENV), build=_engine_build, io=_engine_io, workspace=_engine_ws)
+        envelope=dict(_ENGINE_ENV), build=_engine_build, io=_engine_io, workspace=_engine_ws,
+        work=engine_work)
 
 
 def _engine_int8_spec() -> MemSpec:
     return MemSpec(
         name="serving_engine_int8", path="src/repro_torch/core/serving.py", kind="serve",
         base=dict(_ENGINE_BASE, int8=True), envelope=dict(_ENGINE_ENV),
-        build=_engine_build, io=_engine_io, workspace=_engine_ws)
+        build=_engine_build, io=_engine_io, workspace=_engine_ws, work=engine_work)
 
 
 def _topk_spec() -> MemSpec:
@@ -545,6 +681,7 @@ def _topk_spec() -> MemSpec:
         sweep=dict(s=DEFAULT_EXPONENT_BOUND, nq=DEFAULT_EXPONENT_BOUND,
                    b=DEFAULT_EXPONENT_BOUND),
         envelope=dict(s=ENV_SHARDS, nq=32, b=32, k=10), build=build, io=io, workspace=ws,
+        work=topk_work,
         note="S enters only the stacked argument blocks")
 
 

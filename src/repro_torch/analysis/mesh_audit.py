@@ -13,7 +13,11 @@ over a real group it records and forwards.
 The programs are the sharded search (``ShardedServingIndex.search``), the
 cross-shard merge (``cross_shard_topk``), the distributed build's tile
 step and final-prune step (``launch.build_index``), and, port-only, the
-serving loop over a mesh (``launch.serve_loop.ServeLoop``).
+serving loop over a mesh (``launch.serve_loop.ServeLoop``).  The search,
+the tile step and the final prune also get their roofline at S =
+``ROOFLINE_SHARDS`` on the one-process model (``program_roofline``): the
+walker (``roofline.op_cost``) logs each exchange's payload a shard, and
+each program's ``work`` model declares its least work.
 
   PIPS001  each program declares the collectives it may call, here at its
            registration (``default_specs``).  The tile step and the final
@@ -65,11 +69,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch._patch import patched_everywhere
 from repro_torch.analysis.lint import Finding, report
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import ShardMesh
 
 SWEEP = (1, 2, 4, 8)
+ROOFLINE_SHARDS = 8                # the shards the rooflines run at
 MESH_SHARDS = 4                    # shards of the one-process mesh the passes run on
 PAD_FRACTION = 0.10                # the packing's pad-to-max slack over the owned rows
 H100_MEMORY_BYTES = 80 * 10**9     # an H100 SXM's 80 GB, where no card is present
@@ -97,22 +103,27 @@ class RecordingMesh(ShardMesh):
 
     calls: list = dataclasses.field(default_factory=list, compare=False, repr=False)
 
-    def _note(self, name: str) -> bool:
+    def _note(self, name: str, parts=None) -> bool:
+        """Record ``name``; True where the one-process model runs it (and
+        tells the mesh's observers, as ``ShardMesh`` does where it runs)."""
         self.calls.append((name, _BODY[0] > 0))
-        return self.group is MODEL_GROUP
+        model = self.group is MODEL_GROUP
+        if model and parts is not None:
+            mesh_mod.observe(self, name, parts)
+        return model
 
     def all_gather(self, local_parts):
-        if self._note("all_gather"):
+        if self._note("all_gather", local_parts):
             return mesh_mod.all_gather(local_parts)
         return super().all_gather(local_parts)
 
     def all_to_all(self, local_sends):
-        if self._note("all_to_all"):
+        if self._note("all_to_all", local_sends):
             return mesh_mod.all_to_all(local_sends)
         return super().all_to_all(local_sends)
 
     def psum(self, local_parts):
-        if self._note("psum"):
+        if self._note("psum", local_parts):
             return mesh_mod.psum(local_parts)
         return super().psum(local_parts)
 
@@ -140,7 +151,6 @@ def model_mesh(n_shards: int, device) -> RecordingMesh:
 def shard_bodies(on_enter: Callable | None = None, on_exit: Callable | None = None):
     """Mark every ``beam_search._beam_search_multi`` call as a shard body
     (``_BODY``), calling ``on_enter()`` / ``on_exit()`` around it."""
-    from repro_torch.analysis.hotpath_audit import patched_everywhere
     from repro_torch.core import beam_search as bs
 
     orig = bs._beam_search_multi
@@ -210,21 +220,110 @@ def _tile_inputs(mesh, dev):
 
 
 def _run_tile(mesh, dev):
-    from repro_torch.launch import build_index as bi
-
-    p, pts, hp, res = _tile_inputs(mesh, dev)
-    bi.make_tile_step(mesh, p)(pts, hp, res)
+    fn, args, _ = _tile_program(mesh, dev)
+    fn(*args)
 
 
 def _run_prune(mesh, dev):
+    fn, args, _ = _prune_program(mesh, dev)
+    fn(*args)
+
+
+# -- the rooflines' programs: (fn, args, work(walk)) on a mesh -----------------
+
+def _wire(n_shards: int, payloads) -> float:
+    """Wire bytes a shard of the exchanges ``payloads`` ((op, payload bytes
+    a shard) each) over the S shards, priced as the walk prices them."""
+    from repro_torch.roofline import collective_bytes
+
+    return collective_bytes([(op, b, n_shards) for op, b in payloads])["total"]
+
+
+def _search_program(mesh, dev):
+    """The tiny sharded search with its telemetry; its least work: the
+    shards' engines' (``memory_audit.search_work`` with the search's own
+    hops), the merge's [S, Q, B] blocks read and [Q, k] ids written once,
+    and the gather of the shards' [S, Q, B] ids and dists (8 B a slot, the
+    reference's merge; the port's [S, Q] telemetry blocks gathered beside
+    them are dispatched, not work)."""
+    from repro_torch.analysis.memory_audit import search_work
+    from repro_torch.roofline import Work
+
+    _, _, q = _tiny_data()
+    sv = tiny_packing(mesh)
+    k, beam = 4, 8
+
+    def work(walk):
+        s, nq = mesh.n_shards, q.shape[0]
+        blocks = s * nq * beam * 8
+        return search_work(walk, float(np.sum(walk.out[1]["hops"])), sv.graph.shape[-1],
+                           nq * q.shape[1] * 4 + blocks + nq * k * 4) + Work(
+            {}, 0.0, _wire(s, [("all_gather", blocks)]))
+
+    return (lambda: sv.search(q, k=k, beam=beam, with_stats=True)), (), work
+
+
+def tile_wire(p, n_shards: int) -> float:
+    """The tile step's wire bytes a shard, from its shapes (the reference's
+    exchanges): the [l0, d] float32 leaders gathered; the [S, cap_send]
+    point replicas routed (the route row, d float32 or int8 with a float32
+    scale, the m float32 sketch, the int32 id and bucket, and a valid byte);
+    the [S, cap_edge] edges routed (int32 src, dst and hash, float32 dist,
+    a valid byte); and the 3 int32 stats summed."""
+    dv = p.derived(n_shards)
+    row = p.dim * 4 if p.route_dtype == "f32" else p.dim + 4
+    replicas = n_shards * dv["cap_send"] * (row + p.m_bits * 4 + 8 + 1)
+    edges = n_shards * dv["cap_edge"] * (16 + 1)
+    return _wire(n_shards, [("all_gather", p.l0 * p.dim * 4), ("all_to_all", replicas),
+                            ("all_to_all", edges), ("psum", 12)])
+
+
+def prune_wire(p, n_shards: int) -> float:
+    """The final-prune step's wire bytes a shard, from its shapes: the
+    [S, cap_req] requests (an int32 id and a valid byte) and the
+    [S, cap_req, d] float32 vectors answering them."""
+    cap = n_shards * p.derived(n_shards)["cap_req"]
+    return _wire(n_shards, [("all_to_all", cap * 5), ("all_to_all", cap * p.dim * 4)])
+
+
+def _tile_program(mesh, dev):
+    """The tiny tile step; its least work: its kernels' (levels 0 and 1,
+    the leaves' top-k, the fold), the points read once, the reservoir read
+    and written once, and ``tile_wire``."""
     from repro_torch.launch import build_index as bi
+    from repro_torch.roofline import Work
+
+    p, pts, hp, res = _tile_inputs(mesh, dev)
+
+    def work(walk):
+        own = pts.numel() * 4 + hp.numel() * 4 + 2 * res.ids.numel() * 12
+        return walk.kernel_work() + Work({}, float(own), tile_wire(p, mesh.n_shards))
+
+    return bi.make_tile_step(mesh, p), (pts, hp, res), work
+
+
+def _prune_program(mesh, dev):
+    """The tiny final-prune step on random reservoirs; its least work: the
+    RobustPrune Gram of each row's L candidates (one product a pair), the
+    points, ids and dists read once, the rows written once, and
+    ``prune_wire``."""
+    from repro_torch.launch import build_index as bi
+    from repro_torch.roofline import Work
+    from repro_torch.roofline.op_cost import op_class
 
     p, pts, hp, res = _tile_inputs(mesh, dev)
     g = torch.Generator(device=dev).manual_seed(1)
     ids = torch.randint(0, p.n_tile, res.ids.shape, generator=g, device=dev,
                         dtype=torch.int32)
-    bi.make_final_prune_step(mesh, p)(pts, ids, torch.rand(res.ids.shape, generator=g,
-                                                           device=dev))
+    dists = torch.rand(res.ids.shape, generator=g, device=dev)
+
+    def work(walk):
+        rows, lc = ids.shape
+        return Work({op_class(pts.dtype): float(rows * lc * (lc - 1) * p.dim)},
+                    float(pts.numel() * 4 + rows * lc * 8 + rows * p.max_deg * 8),
+                    prune_wire(p, mesh.n_shards))
+
+    return bi.make_final_prune_step(mesh, p), (pts, ids, dists), work
 
 
 def _run_loop(mesh, dev):
@@ -250,6 +349,7 @@ class MeshSpec:
     collectives: frozenset
     body_collectives: frozenset | None = None
     reference: str | None = None    # the reference's spmd_audit program it answers to
+    program: Callable | None = None  # (mesh, device) -> (fn, args, work): its roofline
 
 
 def default_specs() -> tuple[MeshSpec, ...]:
@@ -260,19 +360,34 @@ def default_specs() -> tuple[MeshSpec, ...]:
         # a result block (the reference's out_specs), then merged
         MeshSpec("sharded_search", _SERVING, "ShardedServingIndex.search", _run_search,
                  frozenset({"all_gather"}), body_collectives=frozenset(),
-                 reference="sharded_search"),
+                 reference="sharded_search", program=_search_program),
         MeshSpec("cross_shard_topk", _SERVING, "cross_shard_topk", _run_topk, frozenset(),
                  reference="cross_shard_topk"),
         # leaders gather + two capacity-routed exchanges + the stats sum
         MeshSpec("build_tile_step", _BUILD, "make_tile_step", _run_tile,
-                 frozenset({"all_gather", "all_to_all", "psum"}), reference="build_tile_step"),
+                 frozenset({"all_gather", "all_to_all", "psum"}), reference="build_tile_step",
+                 program=_tile_program),
         # request/response candidate-vector exchange only
         MeshSpec("build_final_prune", _BUILD, "make_final_prune_step", _run_prune,
-                 frozenset({"all_to_all"}), reference="build_final_prune"),
+                 frozenset({"all_to_all"}), reference="build_final_prune",
+                 program=_prune_program),
         # port-only: rank 0 sends each index call and the stop to the followers
         MeshSpec("serve_loop", "src/repro_torch/launch/serve_loop.py", "ServeLoop", _run_loop,
                  frozenset({"broadcast", "all_gather"}), body_collectives=frozenset()),
     )
+
+
+def program_roofline(spec: MeshSpec, device):
+    """``spec``'s program walked once on the one-process model of
+    ``ROOFLINE_SHARDS`` shards on ``device``: its ``roofline.CellRoofline``,
+    the collective term from the wire bytes its shapes declare, the
+    exchanges the walk logged beside them (``dispatched_coll_bytes``)."""
+    from repro_torch.roofline import analyze_program
+
+    mesh = model_mesh(ROOFLINE_SHARDS, device)
+    fn, args, work = spec.program(mesh, torch.device(device))
+    return analyze_program(fn, args, name=spec.name, kind="sharded", n_shards=ROOFLINE_SHARDS,
+                           work=work, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -440,7 +555,6 @@ def host_reads(log: list):
     """Record the host reads (``Tensor.cpu``, ``.numpy``, ``.tolist``) made
     outside ``transfers.to_device`` / ``to_host``, and mark those two as
     the declared crossings (``log`` gets ``"declared"`` markers)."""
-    from repro_torch.analysis.hotpath_audit import patched_everywhere
     from repro_torch.core import transfers
 
     inside = [0]

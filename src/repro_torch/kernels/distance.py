@@ -118,3 +118,22 @@ def launch_plan_int8() -> dict:
     """``pairwise_distance_int8``'s launch plan
     (``pipnn_pairwise_distance_int8_plan``), as ``launch_plan``."""
     return {"smem": _build.plan_value("pipnn_pairwise_distance_int8_plan")[0]}
+
+
+def work(a: torch.Tensor, b: torch.Tensor, metric: str = "l2") -> dict:
+    """The least work of ``pairwise_distance``: 2*B*M*N*D products at three
+    TF32 products each (3xTF32); both inputs read and the output written
+    once, float32."""
+    bsz, m, d = a.shape
+    n = b.shape[1]
+    return {"ops": {"tf32": 3.0 * 2.0 * bsz * m * n * d},
+            "bytes": 4.0 * (bsz * m * d + bsz * n * d + bsz * m * n)}
+
+
+def work_int8(a: torch.Tensor, b: torch.Tensor) -> dict:
+    """The least work of ``pairwise_distance_int8``: 2*B*M*N*D int8
+    operations; the int8 inputs read and the int32 output written once."""
+    bsz, m, d = a.shape
+    n = b.shape[1]
+    return {"ops": {"int8": 2.0 * bsz * m * n * d},
+            "bytes": float(bsz * (m + n) * d + 4.0 * bsz * m * n)}

@@ -80,3 +80,17 @@ def gather_distance(points, norms, queries, nbr_ids, metric: str = "l2"):
     _build.check(rc, "gather_distance")
     launches += 1
     return out
+
+
+def work(points, norms, queries, nbr_ids, metric: str = "l2") -> dict:
+    """The least work of ``gather_distance`` on these ids: a row and a norm
+    read once for each distinct valid id (-1 reads nothing), every id and
+    output slot, and the queries; the d-long product of each valid slot
+    (2d float32 operations on the CUDA cores)."""
+    nq, c = nbr_ids.shape
+    d = points.shape[1]
+    valid = int((nbr_ids >= 0).sum())
+    rows = torch.unique(nbr_ids[nbr_ids >= 0]).numel()
+    common = nbr_ids.numel() * 8 + nq * d * 4
+    return {"ops": {"f32": 2.0 * valid * d},
+            "bytes": float(rows * (d * points.element_size() + 4) + common)}

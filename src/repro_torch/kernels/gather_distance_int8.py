@@ -110,3 +110,17 @@ def gather_distance_int8(points, scales, norms, queries, q_norms, nbr_ids,
     _build.check(rc, "gather_distance_int8")
     launches += 1
     return out
+
+
+def work(points, scales, norms, queries, q_norms, nbr_ids, metric: str = "l2") -> dict:
+    """The least work of ``gather_distance_int8`` on these ids: a d-byte row,
+    its scale and norm read once for each distinct valid id, every id and
+    output slot, the queries and their norm terms; the d-long int8 product
+    of each valid slot (2d operations)."""
+    nq, c = nbr_ids.shape
+    d = points.shape[1]
+    valid = int((nbr_ids >= 0).sum())
+    rows = torch.unique(nbr_ids[nbr_ids >= 0]).numel()
+    common = nbr_ids.numel() * 8 + nq * d * 4
+    return {"ops": {"int8": 2.0 * valid * d},
+            "bytes": float(rows * (d + 8) + common + nq * 4)}

@@ -115,3 +115,18 @@ def launch_plan(c: int, d: int, k: int) -> dict:
     Launches nothing; needs the built library."""
     smem, kk = _build.plan_value("pipnn_leaf_topk_plan", c, d, k)
     return {"smem": smem, "K": kk}
+
+
+def work(points: torch.Tensor, leaf_ids: torch.Tensor, k: int, metric: str = "l2") -> dict:
+    """The least work of ``leaf_topk`` on these leaves: one d-long product
+    (2d operations) for each unordered pair of distinct valid points of a
+    leaf, as the distances are symmetric, at three TF32 products each
+    (3xTF32); each distinct point row read once, the ids read and the
+    outputs written once."""
+    d = points.shape[1]
+    sizes = (leaf_ids >= 0).sum(dim=1, dtype=torch.int64)
+    products = d * int((sizes * (sizes - 1)).sum())
+    rows = torch.unique(leaf_ids[leaf_ids >= 0]).numel()
+    nb, c = leaf_ids.shape
+    return {"ops": {"tf32": 3.0 * products},
+            "bytes": float(leaf_ids.numel() * 4 + rows * d * 4 + nb * c * k * 8)}

@@ -95,3 +95,29 @@ def launch_plan(l: int) -> dict:
     the launch uses (``pipnn_merge_sorted_reservoirs_plan``): the dynamic
     shared memory in bytes.  Launches nothing; needs the built library."""
     return {"smem": _build.plan_value("pipnn_merge_sorted_reservoirs_plan", l)[0]}
+
+
+def work(a_ids: torch.Tensor, b_ids: torch.Tensor, out_ids: torch.Tensor) -> dict:
+    """The bytes the merge must move on these rows, in whole 32-byte sectors
+    of each row (``a_ids`` as they were before the merge, ``out_ids`` the
+    merged ids).  Live slots are a sorted prefix, so a side's live count is
+    known from its id row up to the first -1: slots [0, min(n + 1, l)).  A
+    row whose B side is empty is R(A) already: B's first id is all it
+    reads.  Any other row reads both id rows that far, the live prefixes of
+    A's and B's hashes and dists, and writes slots [0, max(n_out, nA)) of
+    the three arrays.  Only comparisons and copies: no product."""
+    n, l = a_ids.shape
+    start = torch.arange(n, device=a_ids.device, dtype=torch.int64) * l * 4
+
+    def sectors(count):
+        end = start + count.long() * 4
+        return torch.where(count > 0, (end - 1) // 32 - start // 32 + 1, 0)
+
+    na, nb = (a_ids >= 0).sum(1), (b_ids >= 0).sum(1)
+    n_out = (out_ids >= 0).sum(1)
+    touched = nb > 0
+    per_row = torch.where(
+        touched, sectors(torch.clamp(na + 1, max=l)) + sectors(torch.clamp(nb + 1, max=l))
+        + 2 * sectors(na) + 2 * sectors(nb) + 3 * sectors(torch.maximum(n_out, na)),
+        sectors(torch.ones_like(nb)))
+    return {"ops": {}, "bytes": 32.0 * float(per_row.sum())}

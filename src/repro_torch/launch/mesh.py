@@ -75,6 +75,16 @@ def psum(parts: list[torch.Tensor]) -> torch.Tensor:
 # The mesh
 # ---------------------------------------------------------------------------
 
+# callables ``(mesh, op, parts)`` told of every exchange before it runs, with
+# this rank's parts (the roofline's walker, ``roofline.op_cost``, prices it)
+observers: list = []
+
+
+def observe(mesh, op: str, parts) -> None:
+    for fn in observers:
+        fn(mesh, op, parts)
+
+
 def _wire(t: torch.Tensor) -> torch.Tensor:
     """A tensor as it travels: contiguous, bool as uint8."""
     return (t.to(torch.uint8) if t.dtype == torch.bool else t).contiguous()
@@ -120,6 +130,7 @@ class ShardMesh:
     def all_gather(self, local_parts: list[torch.Tensor]) -> torch.Tensor:
         """Every shard's parts in shard order, on every rank.  Each rank's
         parts together have one shape on every rank."""
+        observe(self, "all_gather", local_parts)
         mine = all_gather(local_parts)
         if self.group is None:
             return mine
@@ -132,6 +143,7 @@ class ShardMesh:
         """Local sender ``j``'s [S_dst, cap, ...] buffer out; each local
         receiver's [S_src, cap, ...] back, row ``src`` being what shard
         ``src`` sent it."""
+        observe(self, "all_to_all", local_sends)
         if self.group is None:
             return all_to_all(local_sends)
         w, ln = self.world, self.n_local
@@ -148,6 +160,7 @@ class ShardMesh:
 
     def psum(self, local_parts: list[torch.Tensor]) -> torch.Tensor:
         """The shards' values summed, on every rank."""
+        observe(self, "psum", local_parts)
         total = psum(local_parts)
         if self.group is not None:
             total = total.contiguous()

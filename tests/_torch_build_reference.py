@@ -8,7 +8,10 @@ starts, so the reference's multi-shard build runs in a subprocess with
 exact on both sides), the subprocess builds it with ``repro`` on 1-D
 meshes of 4 and 8 devices, its supersteps jitted (the reference's own
 functions, compiled once instead of run op by op), and writes graphs,
-dists, tile-step reservoirs and stats to one ``.npz``.  With pytest-xdist
+dists, tile-step reservoirs and stats to one ``.npz``, and the collective
+wire bytes a shard (``hlo_cost``'s ``coll_by_op``) of its compiled S = 8
+tile step and final-prune step at ``DistBuildParams.tiny()`` to
+``coll.json`` (the port's roofline).  With pytest-xdist
 the workers share one run through a lock file in the session's temporary
 directory.  A failed subprocess fails the tests that need it.
 """
@@ -41,8 +44,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
+from repro.analysis.spmd_audit import _build_avals
 from repro.core.hashprune import reservoir_init
 from repro.launch import build_index as bi
+from repro.roofline import hlo_cost
 
 out = pathlib.Path(sys.argv[1])
 cases = json.loads(sys.argv[2])
@@ -68,6 +73,16 @@ for tag, s, n, kw, final_prune in cases:
             res[f"{tag}_res_{name}"] = np.asarray(getattr(r, name))
         res[f"{tag}_stats"] = np.asarray(st)
 np.savez(out / "reference.npz", **res)
+
+pt = bi.DistBuildParams.tiny()
+m8 = Mesh(np.array(jax.devices()[:8]), ("data",))
+av = _build_avals(pt)
+lowered = {"tile": jax.jit(make_tile(m8, pt).shard_step).lower(
+               *(av[k] for k in ("points", "hyperplanes", "res_ids", "res_hashes", "res_dists"))),
+           "prune": jax.jit(make_prune(m8, pt)).lower(av["points"], av["res_ids"], av["res_dists"])}
+coll = {k: hlo_cost.analyze(v.compile().as_text(), n_devices=8).coll_by_op
+        for k, v in lowered.items()}
+(out / "coll.json").write_text(json.dumps(coll))
 '''
 
 

@@ -7,8 +7,11 @@ starts, so the reference's multi-shard paths run in a subprocess with
 and the graph (integer points, so every float32 sum is exact), the
 subprocess packs and searches them with ``repro`` and writes its results
 to ``.npz`` files and one JSON file (the S = 8 shard-failure drill of the
-serving loop).  With pytest-xdist the workers share one run through a
-lock file in the session's temporary directory.  A failed subprocess
+serving loop), and the collective wire bytes a shard (``hlo_cost``'s
+``coll_by_op``) of its compiled S = 8 search program and of the
+cross-shard merge over that program's sharded blocks, for the port's
+roofline (``coll.json``).  With pytest-xdist the workers share one run
+through a lock file in the session's temporary directory.  A failed subprocess
 fails the tests that need it.
 """
 from __future__ import annotations
@@ -34,7 +37,9 @@ import json, pathlib, sys
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from repro.distributed.serving import cross_shard_topk
+from repro.roofline import hlo_cost
 from repro.core.serving import ServingIndex
 from repro.distributed.serving import AllShardsDown, ShardedServingIndex
 from repro.launch.serve_loop import ServeLoop
@@ -137,6 +142,20 @@ record = dict(
     counters=dict(loop.counters), events=log,
     injector=[[k, c, d] for k, c, d in inj.events], calls=inj.calls)
 (out / "drill.json").write_text(json.dumps(record))
+
+# the roofline's collective bytes: the S = 8 search program at the port's
+# mesh-audit shapes (4 queries, beam 8, 4 expansions, 12 steps) and the
+# merge of its sharded blocks (k = 4)
+sv = pack(8)
+fn = sv._sharded_search_fn(beam=8, iters=12, expansions=4, early_exit=True,
+                           kernel_path="xla", interpret=False)
+qj = jax.device_put(q[:4], NamedSharding(sv.mesh, P()))
+args = (sv.gids, sv.graph, sv.points, sv.norms, sv.starts, sv._scales_operand(), qj)
+coll = {"search": hlo_cost.analyze(fn.lower(*args).compile().as_text(), n_devices=8).coll_by_op}
+ids_s, ds_s = fn(*args)[:2]
+coll["merge"] = hlo_cost.analyze(cross_shard_topk.lower(ids_s, ds_s, k=4).compile().as_text(),
+                                 n_devices=8).coll_by_op
+(out / "coll.json").write_text(json.dumps(coll))
 '''
 
 

@@ -1120,3 +1120,47 @@ def test_sync_counts_agree_with_the_card_debug_mode(cuda):
     assert findings == [], [f.render() for f in findings]
     for name, r in records.items():
         assert r["card_syncs"] == r["syncs"] == r["budget"], (name, r)
+
+
+def _hot_names():
+    from repro_torch.analysis import hotpath_audit
+
+    return [p.name for p in hotpath_audit.default_programs()]
+
+
+@pytest.mark.parametrize("name", _hot_names())
+def test_roofline_walk_on_the_card_equals_the_cpu(cuda, name):
+    """The roofline's walker on the card: a hot-path program's operations
+    by class, bytes and wire bytes equal its walk on the CPU on the same
+    inputs, and every launch of the walk is charged its work model."""
+    from repro_torch import kernels
+    from repro_torch.analysis import hotpath_audit
+
+    prog = {p.name: p for p in hotpath_audit.default_programs()}[name]
+    kernels.reset_launch_counts()
+    card = hotpath_audit.program_roofline(prog, cuda)
+    assert card.kernel_launches == {k: v for k, v in kernels.launch_counts().items() if v}
+    cpu = hotpath_audit.program_roofline(prog, "cpu")
+    for key in ("dispatched_ops", "dispatched_bytes", "dispatched_coll_bytes", "work_ops",
+                "work_bytes", "coll_bytes", "kernel_launches"):
+        assert getattr(card, key) == getattr(cpu, key), key
+
+
+def test_roofline_of_every_registered_program_on_the_card(cuda):
+    """Each memory-audit program at its canonical point and each mesh
+    program at S = 8, walked on the card: every launch charged, a complete
+    record, and the dispatched bytes at least the work's."""
+    from repro_torch import kernels
+    from repro_torch.analysis import memory_audit, mesh_audit
+    from repro_torch.roofline.analysis import RECORD_KEYS, record
+
+    runs = [lambda s=s: memory_audit.roofline_of(s, device=cuda)
+            for s in memory_audit.default_specs()]
+    runs += [lambda s=s: mesh_audit.program_roofline(s, cuda)
+             for s in mesh_audit.default_specs() if s.program is not None]
+    for run in runs:
+        kernels.reset_launch_counts()
+        r = run()
+        assert r.kernel_launches == {k: v for k, v in kernels.launch_counts().items() if v}
+        assert all(record(r).get(k) is not None for k in RECORD_KEYS), r.name
+        assert r.dispatched_bytes >= r.work_bytes > 0, r.name
