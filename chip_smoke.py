@@ -242,6 +242,32 @@ Phases (any failure exits non-zero before the last line is printed):
    from its kernel's work model (``work`` beside its wrapper) and
    ``roofline.H100``.
 
+14. LM serving (``launch/serve.py::Server``, ``models/``; no kernel of the
+   port runs in the LM), after the earlier phases' tensors are freed.  (a)
+   qwen2-7b at full width (d_model 3584, vocab 152,064) cut to 2 layers,
+   its weights made once on the CPU and copied to the card: float32
+   greedy tokens identical, prefill and decode logits within 1e-4 and
+   2e-3 (the decode steps read the bfloat16 KV cache), bfloat16 logits
+   within ``LM_BF16_CARD_TOL`` times the CPU logits' RMS.  (b) qwen2-7b
+   (28 layers, 7.07e9 float32 parameters) and granite-moe-1b-a400m at
+   full size, and qwen2-vl-7b at full width cut to 4 layers (M-RoPE),
+   built on the card from the seed: 3 batches of 8 requests, prompt 64,
+   32 new tokens; prefill ms, decode tokens/s, peak device bytes; the last
+   batch's prompts traced for 8 tokens (device-busy share, top kernels);
+   the decode-consistency rule on the last batch (prefill and decode
+   logits against ``forward``'s on the generated sequences in bfloat16,
+   within ``LM_BF16_CONSISTENCY_TOL`` times the logits' RMS, and at least
+   ``LM_ARGMAX_AGREE`` of the generated tokens ``forward``'s argmax; an
+   MoE at capacity factor E / k, where nothing is dropped).  llama3-405b,
+   grok-1-314b and internlm2-20b do not fit one card in float32, and
+   qwen3-14b is left out for time: these four run at smoke width only
+   (``tests/test_torch_cuda.py -k smoke_model``).  (c) the RAG loop of
+   ``examples/torch_rag_serve.py`` in front of the full-size qwen2-7b
+   ``Server``: 262,144 documents of dim 128, one index served as its f32
+   and its int8 copy, 32 requests each; requests/s end to end, the build's
+   and the gather kernels' launches.  Each row of the ``kernels`` line
+   gains its ``phase14_launches``.
+
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
 """
@@ -250,6 +276,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import pathlib
 import subprocess
@@ -2891,6 +2918,300 @@ def phase_roofline(full: dict, kstats: dict, dist_kernels: dict, x_np, q_np, see
     return dict(launches=dict(tally), programs=rows, full=full_rows)
 
 
+# phase 14: LM serving.  (a) card against CPU at full width, depth 2;
+# (b) full-size runs; (c) the RAG example at full size
+LM_CUT_LAYERS = 2
+LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_NEW = 2, 16, 4
+LM_BATCH, LM_PROMPT, LM_NEW, LM_BATCHES = 8, 64, 32, 3
+LM_TRACE_NEW = 8     # tokens of the traced generate (torch.profiler)
+# (architecture, layers kept: None = all); llama3-405b, grok-1-314b and
+# internlm2-20b do not fit one card in float32, qwen3-14b is left out for time:
+# those four run at smoke width only (the CPU tests and tests/test_torch_cuda.py)
+LM_RUNS = (("qwen2-7b", None), ("granite-moe-1b-a400m", None), ("qwen2-vl-7b", 4))
+# card against CPU in float32 (TF32 off): max |logit difference| of the
+# prefill and of the decode steps, as tests/test_torch_models.py holds the
+# port to the reference: a decode step reads the bfloat16 KV cache, where a
+# 1-ulp float32 difference can round to another bfloat16
+LM_F32_TOL = (1e-4, 2e-3)
+# bfloat16 activations (the published dtype): limits on the max |logit
+# difference| over the RMS of the reference logits, one for each check, set
+# from the card's readings with room (PERF.md section 2).  The card against
+# the CPU, the same code on the same inputs: read 0.035-0.038.  The decode
+# steps against ``forward`` on the generated sequences, other shapes and so
+# other bfloat16 roundings: read 0.051-0.093 dense, 0.23-0.24 granite (an
+# MoE's near-tied routes flip).  A wrong decode path is off by about the
+# RMS itself.  And the least share of the generated tokens that are
+# ``forward``'s argmax: read 0.855-0.984
+LM_BF16_CARD_TOL = 0.1
+LM_BF16_CONSISTENCY_TOL = 0.5
+LM_ARGMAX_AGREE = 0.7
+RAG_CORPUS, RAG_DIM, RAG_REQUESTS = 2 ** 18, 128, 32
+
+
+@contextlib.contextmanager
+def _arch_cut(n_layers: int | None, **fields):
+    """Within it, ``Server`` builds each architecture's models with
+    ``n_layers`` layers (None: all) and ``fields`` replaced."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import serve
+
+    def cut(arch_id):
+        arch = registry.get_config(arch_id)
+        keep = dict(fields, n_layers=n_layers or arch.model.n_layers)
+        return dataclasses.replace(arch, model=dataclasses.replace(arch.model, **keep))
+
+    orig = serve.get_config
+    serve.get_config = cut
+    try:
+        yield
+    finally:
+        serve.get_config = orig
+
+
+def _dropless(cfg):
+    """``cfg`` with an MoE's capacity factor raised to E / k, so no copy is
+    dropped at any number of tokens (capacity depends on the call's tokens,
+    so prefill, decode and forward drop differently otherwise)."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+
+
+def _teacher_forced(server, seq, prompt_len: int, cfg=None):
+    """Logits [steps, B, V] (float32) of ``server``'s prefill of
+    ``seq[:, :prompt_len]`` and of its decode steps fed ``seq``'s next
+    tokens, under ``cfg`` (default: the server's config)."""
+    import torch
+
+    from repro_torch.models import transformer
+
+    cfg = cfg or server.model.config
+    batch = server.make_batch(seq[:, :prompt_len])
+    logits, cache = transformer.prefill(server.params, cfg, batch["tokens"], server.max_len,
+                                        positions=batch.get("positions"))
+    out = [logits]
+    tok = torch.as_tensor(seq, device=server.device)
+    for i in range(prompt_len, seq.shape[1] - 1):
+        logits, cache = transformer.decode_step(server.params, cfg, tok[:, i:i + 1], cache)
+        out.append(logits)
+    return torch.stack(out)
+
+
+def _rms(t) -> float:
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def _lm_parity(seed: int) -> dict:
+    """(a): qwen2-7b at full width cut to ``LM_CUT_LAYERS`` layers, its
+    weights made once on the CPU and copied to the card: float32 greedy
+    tokens identical and logits within ``LM_F32_TOL`` (prefill, decode);
+    bfloat16 (the published activation dtype) logits within
+    ``LM_BF16_CARD_TOL`` times the CPU logits' RMS."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import layers
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    max_len = LM_PARITY_PROMPT + LM_PARITY_NEW
+    out = {}
+    t0 = time.perf_counter()
+    with _arch_cut(LM_CUT_LAYERS, act_dtype=torch.float32):
+        host = Server("qwen2-7b", smoke=False, max_len=max_len, seed=seed, device=cpu)
+        card = Server("qwen2-7b", smoke=False, max_len=max_len, seed=seed, device=cuda)
+    card.params = layers.tree_map(lambda t: t.to(cuda), host.params)
+    out["init_s"] = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(
+        0, host.vocab, (LM_PARITY_BATCH, LM_PARITY_PROMPT)).astype(np.int32)
+    toks = {}
+    for name, server in (("cpu", host), ("card", card)):
+        toks[name], stats = server.generate(prompts, LM_PARITY_NEW)
+        out[f"{name}_generate"] = stats
+    check(np.array_equal(toks["cpu"], toks["card"]),
+          f"phase14 parity: card tokens {toks['card'].tolist()} != CPU's {toks['cpu'].tolist()}")
+    seq = np.concatenate([prompts, toks["cpu"]], axis=1)
+    for dtype, tol in ((torch.float32, None), (torch.bfloat16, LM_BF16_CARD_TOL)):
+        cfg = dataclasses.replace(host.model.config, act_dtype=dtype)
+        want = _teacher_forced(host, seq, LM_PARITY_PROMPT, cfg)
+        got = _teacher_forced(card, seq, LM_PARITY_PROMPT, cfg).cpu()
+        errs = (got - want).abs().amax(dim=(1, 2)).tolist()
+        rms = _rms(want)
+        bounds = LM_F32_TOL if tol is None else (tol * rms,) * 2
+        out[str(dtype).split(".")[-1]] = dict(
+            prefill_err=errs[0], decode_errs=errs[1:], logit_rms=rms,
+            max_err_over_rms=max(errs) / rms, err_rms_over_rms=_rms(got - want) / rms,
+            max_abs_logit=float(want.abs().max()), tol=bounds)
+        check(errs[0] <= bounds[0] and max(errs[1:]) <= bounds[1],
+              f"phase14 parity {dtype}: card logits off the CPU's by {errs} > {bounds}")
+    out.update(tokens=toks["card"].tolist(), layers=LM_CUT_LAYERS, d_model=host.d_model,
+               vocab=host.vocab, s=time.perf_counter() - t0)
+    del host, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _lm_run(arch_id: str, n_layers, seed: int) -> dict:
+    """(b): one architecture at full width (depth ``n_layers``, None: all)
+    on the card from a seed: ``LM_BATCHES`` batches of ``LM_BATCH``
+    requests, prompt ``LM_PROMPT``, ``LM_NEW`` new tokens; prefill ms,
+    decode tokens/s, peak device bytes; the last batch's prompts once more
+    under ``torch.profiler`` (device-busy seconds, idle share, top
+    kernels); then the decode-consistency rule on the last batch's
+    generated sequences (an MoE dropless, ``_dropless``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import layers, transformer
+    from repro_torch.trace_build import _region
+
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with _arch_cut(n_layers):
+        server = Server(arch_id, smoke=False, max_len=LM_PROMPT + LM_NEW, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    cfg = server.model.config
+    leaves = []
+    layers.tree_map(leaves.append, server.params)
+    n_params = sum(t.numel() for t in leaves)
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    del leaves
+    out = dict(arch=arch_id, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               params=n_params, param_bytes=param_bytes, init_s=time.perf_counter() - t0,
+               batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW, batches=[])
+    rng = np.random.default_rng(seed)
+    for _ in range(LM_BATCHES):
+        prompts = rng.integers(0, server.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
+        toks, stats = server.generate(prompts, LM_NEW)
+        check(toks.shape == (LM_BATCH, LM_NEW) and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
+              f"phase14 {arch_id}: tokens out of range")
+        out["batches"].append(dict(prefill_ms=1e3 * stats["prefill_s"],
+                                   decode_s=stats["decode_s"],
+                                   decode_tok_per_s=stats["decode_tok_per_s"]))
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_above_held"] = out["peak_device_bytes"] - held
+    # where a step's time goes: the last batch's prompts again, traced
+    # (slower than untraced: the times above are the untraced ones)
+    out["trace"] = _region(f"generate {LM_TRACE_NEW} tokens",
+                           lambda: server.generate(prompts, LM_TRACE_NEW))
+    # the decode-consistency rule on the last batch
+    seq = np.concatenate([prompts, toks], axis=1)
+    check_cfg = _dropless(cfg)
+    batch = server.make_batch(seq)
+    h, _ = transformer.forward(server.params, check_cfg, batch["tokens"],
+                               positions=batch.get("positions"))
+    full = layers.unembed(server.params["embed"], h)[:, LM_PROMPT - 1:-1].transpose(0, 1)
+    steps = _teacher_forced(server, seq, LM_PROMPT, check_cfg)
+    errs = (steps - full).abs().amax(dim=(1, 2))
+    rms = _rms(full)
+    agree = float((full.argmax(-1).T.cpu() == torch.as_tensor(toks)).float().mean())
+    out["consistency"] = dict(max_abs_err=float(errs.max()), per_step_max=errs.tolist(),
+                              logit_rms=rms, max_err_over_rms=float(errs.max()) / rms,
+                              err_rms_over_rms=_rms(steps - full) / rms,
+                              max_abs_logit=float(full.abs().max()),
+                              tol=LM_BF16_CONSISTENCY_TOL * rms, argmax_agrees=agree,
+                              dropless=cfg.moe is not None)
+    check(float(errs.max()) <= LM_BF16_CONSISTENCY_TOL * rms,
+          f"phase14 {arch_id}: decode logits off forward's by {float(errs.max())} > "
+          f"{LM_BF16_CONSISTENCY_TOL} x the logits' RMS {rms}")
+    check(agree >= LM_ARGMAX_AGREE,
+          f"phase14 {arch_id}: {agree} of the generated tokens are forward's argmax "
+          f"< {LM_ARGMAX_AGREE}")
+    del server, h, full, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm(seed: int) -> dict:
+    """Phase 14: LM serving (``launch/serve.py::Server``, ``models/``) and
+    the RAG example.  (a) ``_lm_parity``; (b) ``_lm_run`` for each of
+    ``LM_RUNS``; (c) ``_rag``.  The launch counters are set to 0 before
+    each path and read after it: the LM itself launches none of the port's
+    kernels."""
+    import torch
+
+    from repro_torch import kernels
+
+    out = {"launches": {}}
+    kernels.reset_launch_counts()
+    out["parity"] = _lm_parity(seed)
+    out["launches"]["parity"] = _path_launches("phase14 parity", ())
+    log("phase14 parity", json.dumps(out["parity"]))
+    out["runs"] = {}
+    for arch_id, n_layers in LM_RUNS:
+        kernels.reset_launch_counts()
+        rec = _lm_run(arch_id, n_layers, seed)
+        out["launches"][arch_id] = _path_launches(f"phase14 {arch_id}", ())
+        out["runs"][arch_id] = rec
+        log("phase14 run", arch_id, json.dumps(rec))
+    out["rag"] = _rag(seed)
+    out["launches"].update({tag: out["rag"][tag]["launches"] for tag in ("rag_f32", "rag_int8")})
+    return out
+
+
+def _rag(seed: int) -> dict:
+    """(c): ``examples/torch_rag_serve.py``'s stream at ``RAG_CORPUS``
+    documents of dim ``RAG_DIM`` in front of the full-size qwen2-7b
+    ``Server``: one index (the example's default MIPS build), served as
+    its f32 and its int8 copy, ``RAG_REQUESTS`` requests each from the
+    same random state (the example's ``serve_requests``).  The f32 path
+    (the build and its searches) must launch the build's kernels and the
+    f32 gather kernel, the int8 path the int8 gather kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import Retriever, Server
+
+    dev = torch.device("cuda")
+    ex = _example("torch_rag_serve")
+    rag = ex._retrieval()
+    rng = np.random.default_rng(0)
+    corpus = rag.make_corpus(rng, RAG_CORPUS, RAG_DIM)
+    state = rng.bit_generator.state
+    server = Server("qwen2-7b", smoke=False, max_len=ex.max_len(rag), seed=seed, device=dev)
+    out, index, ids_by = {}, None, {}
+    for ann_dtype, needed in (("f32", BUILD_KERNELS + ("gather_distance",)),
+                              ("int8", ("gather_distance_int8",))):
+        tag = f"rag_{ann_dtype}"
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        retriever = Retriever(corpus, index, points_dtype=ann_dtype, metric="mips", seed=0,
+                              device=dev)
+        torch.cuda.synchronize()
+        index_s = time.perf_counter() - t0
+        index = retriever.index
+        rng = np.random.default_rng()
+        rng.bit_generator.state = state
+        doc_tokens, proj = rag.make_payloads(rng, RAG_CORPUS, server.vocab, RAG_DIM)
+        got = ex.serve_requests(rng, retriever, server, doc_tokens, proj, RAG_REQUESTS)
+        launches = _path_launches(f"phase14 {tag}", needed)
+        ids, toks = got["ids"], got["tokens"]
+        ids_by[ann_dtype] = ids
+        check(ids.shape == (RAG_REQUESTS, rag.TOPK)
+              and bool(((ids >= 0) & (ids < RAG_CORPUS)).all()), f"phase14 {tag}: ids {ids}")
+        check(toks.shape == (RAG_REQUESTS, ex.MAX_NEW), f"phase14 {tag}: tokens {toks.shape}")
+        out[tag] = dict(requests=RAG_REQUESTS, corpus=RAG_CORPUS, dim=RAG_DIM,
+                        requests_per_s=got["requests_per_s"],
+                        index_s=index_s, built=ann_dtype == "f32",
+                        device_bytes=retriever.device_bytes(),
+                        prefill_ms=[1e3 * s["prefill_s"] for s in got["stats"]],
+                        decode_tok_per_s=[s["decode_tok_per_s"] for s in got["stats"]],
+                        ids_head=ids[:4].tolist(), launches=launches)
+        log("phase14 rag", tag, json.dumps(out[tag]))
+    # the same requests through both copies: the share of ids they agree on
+    out["int8_ids_equal_f32"] = float((ids_by["int8"] == ids_by["f32"]).mean())
+    log("phase14 rag int8_ids_equal_f32", out["int8_ids_equal_f32"])
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
 def _sites(replaces: tuple) -> str:
     """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
     return " and :".join([replaces[0]] + [r.rpartition(":")[2] for r in replaces[1:]])
@@ -3019,6 +3340,15 @@ def main() -> int:
     roof = phase_roofline(full, kstats, dist["kernels"], x_np, q_np, args.seed)
     log("phase13 s", round(time.perf_counter() - t0, 3))
 
+    # phase 14 needs the card to itself: the earlier phases' tensors go first
+    full.pop("index", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase14 held before", torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    lm = phase_lm(args.seed)
+    log("phase14 s", round(time.perf_counter() - t0, 3))
+
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
     # launches are read from
@@ -3090,6 +3420,8 @@ def main() -> int:
         # phase 13: the roofline's walks of the registered programs, the
         # full-size build and searches and the hot-path programs
         row.update(phase13_launches=roof["launches"].get(counter, 0))
+        # phase 14: the LM runs (none) and the RAG example's two paths
+        row.update(phase14_launches={k: v[counter] for k, v in lm["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -11,13 +11,13 @@ the retrieval substrate of a serving stack.
   PYTHONPATH=src python examples/torch_rag_retrieve.py --ann-dtype int8
   PYTHONPATH=src python examples/torch_rag_retrieve.py --device cpu
 
-The port of ``examples/rag_serve.py:41-76``, with the same constants and
-random stream.  Its LM ``Server`` half (prepending the retrieved
-documents' tokens and generating) is not ported: the port has no LM, so
-this file stops at the augmented prompt.  ``VOCAB`` is the vocabulary of
-the reference's default ``--arch qwen2-7b`` smoke model, which the prompt
-ids and document tokens are drawn from.  Without a card the default
-device raises.
+The retrieval half of ``examples/rag_serve.py:41-76``, with the same
+constants and random stream; this file stops at the augmented prompt, and
+``examples/torch_rag_serve.py`` (the whole example) adds the LM that
+generates from it, reusing the functions here.  ``VOCAB`` is the
+vocabulary of the reference's default ``--arch qwen2-7b`` smoke model,
+which the prompt ids and document tokens are drawn from.  Without a card
+the default device raises.
 """
 import argparse
 import time
@@ -35,6 +35,33 @@ TOPK = 2
 PROMPT_LEN = 16
 
 
+def make_corpus(rng, n: int, dim: int = DIM) -> np.ndarray:
+    """``n`` document embeddings: a 64-cluster Gaussian mixture."""
+    centers = rng.standard_normal((64, dim)) * 2.0
+    assign = rng.integers(0, 64, n)
+    return (centers[assign] + 0.5 * rng.standard_normal((n, dim))).astype(np.float32)
+
+
+def make_payloads(rng, n: int, vocab: int, dim: int = DIM):
+    """Each document's ``DOC_LEN`` tokens, and the prompt "embedder": a
+    fixed projection of prompt token ids into corpus space (a stub for a
+    real encoder; deterministic, so retrieval is reproducible)."""
+    doc_tokens = rng.integers(0, vocab, (n, DOC_LEN)).astype(np.int32)
+    proj = rng.standard_normal((PROMPT_LEN, dim)).astype(np.float32)
+    return doc_tokens, proj
+
+
+def next_batch(rng, b: int, vocab: int, proj, retriever, doc_tokens):
+    """``b`` random prompts, their top-``TOPK`` documents by MIPS, and the
+    prompts with those documents' tokens prepended: (ids [b, TOPK],
+    augmented prompts [b, TOPK * DOC_LEN + PROMPT_LEN])."""
+    prompts = rng.integers(0, vocab, (b, PROMPT_LEN)).astype(np.int32)
+    q_emb = (prompts / vocab) @ proj          # [b, dim]
+    hits = retriever.retrieve(q_emb, k=TOPK, beam=32)
+    aug = np.concatenate([doc_tokens[hits.reshape(b, -1)].reshape(b, -1), prompts], axis=1)
+    return hits, aug
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda")
@@ -50,10 +77,7 @@ def main(argv=None) -> dict:
 
     # --- 1. corpus: embeddings + token payloads --------------------------
     t0 = time.perf_counter()
-    centers = rng.standard_normal((64, DIM)) * 2.0
-    assign = rng.integers(0, 64, args.corpus)
-    corpus_emb = (centers[assign]
-                  + 0.5 * rng.standard_normal((args.corpus, DIM))).astype(np.float32)
+    corpus_emb = make_corpus(rng, args.corpus)
     retriever = Retriever(corpus_emb, points_dtype=args.ann_dtype, metric="mips", seed=0,
                           device=dev)
     index_s = time.perf_counter() - t0
@@ -61,21 +85,14 @@ def main(argv=None) -> dict:
     print(f"[index] {args.corpus} docs indexed in {index_s:.2f}s "
           f"(avg deg {retriever.index.average_degree():.1f}, "
           f"{args.ann_dtype} serving copy: {device_bytes / 1e6:.2f} MB on device)")
-    doc_tokens = rng.integers(0, VOCAB, (args.corpus, DOC_LEN)).astype(np.int32)
-
-    # prompt "embedder": project prompt token ids into corpus space (stub
-    # for a real encoder; deterministic so retrieval is reproducible)
-    proj = rng.standard_normal((PROMPT_LEN, DIM)).astype(np.float32)
+    doc_tokens, proj = make_payloads(rng, args.corpus, VOCAB)
 
     served, hits_all = 0, []
     synchronize(dev)
     t_all = time.perf_counter()
     while served < args.requests:
         b = min(BATCH, args.requests - served)
-        prompts = rng.integers(0, VOCAB, (b, PROMPT_LEN)).astype(np.int32)
-        q_emb = (prompts / VOCAB) @ proj          # [b, dim]
-        hits = retriever.retrieve(q_emb, k=TOPK, beam=32)
-        aug = np.concatenate([doc_tokens[hits.reshape(b, -1)].reshape(b, -1), prompts], axis=1)
+        hits, aug = next_batch(rng, b, VOCAB, proj, retriever, doc_tokens)
         hits_all.append(hits)
         served += b
         print(f"[retrieve] batch of {b}: top-{TOPK} doc ids {hits.tolist()}, "

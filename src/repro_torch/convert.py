@@ -1,11 +1,11 @@
 """Carry the reference's state into the port.
 
-The system has no weights; what crosses between the packages is the
-dataset, the RBC leaves, the hyperplanes or sketches, the HashPrune
-reservoir, the built graph and a serving packing.  These functions take
+What crosses between the packages is the dataset, the RBC leaves, the
+hyperplanes or sketches, the HashPrune reservoir, the built graph, a
+serving packing, and a transformer's parameters.  These functions take
 that state as numpy arrays (never objects of the JAX package) and return
-the port's counterparts on ``device`` (default: the card).  Leaves and hyperplanes go
-straight to ``pipnn.build(leaves=..., hyperplanes=...)``.
+the port's counterparts on ``device`` (default: the card).  Leaves and
+hyperplanes go straight to ``pipnn.build(leaves=..., hyperplanes=...)``.
 """
 from __future__ import annotations
 
@@ -20,6 +20,35 @@ from repro_torch.device import resolve_device
 
 def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _leaf(a: np.ndarray, device) -> torch.Tensor:
+    """A parameter array as a tensor of the same dtype; bfloat16 (numpy's
+    ``ml_dtypes`` kind) carried bit for bit."""
+    a = np.array(a)   # a writable copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def transformer_from_arrays(params: dict, *, device=None) -> dict:
+    """The port's parameter tree of a transformer-family model
+    (``models.transformer``) from the reference's, given as numpy arrays
+    (``{"embed", "blocks", "final_norm"}``, every block leaf stacked on a
+    leading [L, ...] axis): the stacked leaves are split into one dict a
+    layer, each array kept in its dtype, on ``device``."""
+    dev = resolve_device(device)
+
+    def tree(node, pick=None):
+        if isinstance(node, dict):
+            return {k: tree(v, pick) for k, v in node.items()}
+        a = np.asarray(node)
+        return _leaf(a if pick is None else a[pick], dev)
+
+    n_layers = len(np.asarray(params["blocks"]["ln1"]["scale"]))
+    return {"embed": tree(params["embed"]),
+            "blocks": [tree(params["blocks"], i) for i in range(n_layers)],
+            "final_norm": tree(params["final_norm"])}
 
 
 def index_from_arrays(graph, dists, start: int, *, metric: str = "l2",

@@ -1,5 +1,14 @@
-"""ANN retrieval for a serving stack (counterpart of ``Retriever`` in
+"""Batched LM serving and ANN retrieval for a serving stack (counterpart of
 ``repro/launch/serve.py``).
+
+``Server`` holds a transformer-family model's parameters on the device and
+serves request batches: one prefill a batch, then one decode step a token
+for every sequence, with greedy or temperature sampling.  Its CLI serves a
+queue of random requests in batches:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --full
+
+(``--device cpu`` on the CPU; without it the card, which must be present).
 
 ``Retriever`` wraps a PiPNN index and its corpus embeddings as a packed
 ``ServingIndex`` on the device, so each ``retrieve`` moves only the query
@@ -10,14 +19,21 @@ scalar-quantized packing, about a quarter, with exact norm terms).
 (``distributed.serving.ShardedServingIndex``), all shards on one device;
 ``mesh`` (a ``launch.mesh.ShardMesh``) spreads it over the mesh's ranks,
 each constructing the ``Retriever`` and calling ``retrieve`` alike.
-
-The reference module's LM ``Server`` is template scaffolding and is not
-ported.
+``examples/torch_rag_serve.py`` puts the ``Retriever`` in front of the
+``Server`` for retrieval-augmented generation.
 """
 from __future__ import annotations
 
+import argparse
+import sys
+import time
+
 import numpy as np
 import torch
+
+from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch import steps
 
 RETRIEVER_DTYPES = ("f32", "bf16", "int8")
 
@@ -87,3 +103,122 @@ class Retriever:
 
     def device_bytes(self) -> int:
         return self.sv.device_bytes()
+
+
+class Server:
+    """A transformer-family model of ``arch_id`` (its smoke model unless
+    ``smoke=False``) with parameters made on ``device`` (default: the card,
+    which must be present) from ``seed``, serving prompts of up to
+    ``max_len`` tokens with their continuations.
+    ``model_parallel`` above 1 (tensor parallelism over cards) is not
+    ported yet (ROADMAP.md section 1)."""
+
+    def __init__(self, arch_id: str, *, smoke: bool = True, model_parallel: int = 1,
+                 max_len: int = 256, seed: int = 0, device=None):
+        if model_parallel != 1:
+            raise NotImplementedError(
+                f"model_parallel={model_parallel}: tensor parallelism over cards is not "
+                "ported yet; see ROADMAP.md section 1")
+        self.device = resolve_device(device)
+        self.arch = get_config(arch_id)
+        self.model = steps.build_model(self.arch, smoke=smoke)
+        self.max_len = max_len
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.params = self.model.init(gen, self.device)
+        self.vocab = self.model.config.vocab
+        self.d_model = self.model.config.d_model
+
+    def make_batch(self, tokens: np.ndarray) -> dict:
+        """The prefill batch of prompts [B, T]: their tokens and, for the
+        ``vlm`` family, M-RoPE positions [3, B, T] (text: all three
+        components the token's index)."""
+        b, t = tokens.shape
+        batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                                           device=self.device)}
+        if self.arch.family == "vlm":
+            pos = torch.arange(t, device=self.device)
+            batch["positions"] = pos[None, None].expand(3, b, t)
+        return batch
+
+    def generate(self, prompts: np.ndarray, max_new: int, *, temperature: float = 0.0,
+                 seed: int = 0):
+        """prompts: [B, T] integers.  Returns (tokens [B, max_new] int32,
+        {"prefill_s", "decode_s", "decode_tok_per_s"}): the first token is
+        sampled from the prefill's logits, then ``max_new`` decode steps
+        each sample the next.  Greedy (the first of equal maxima) at
+        ``temperature`` 0, else sampled from softmax(logits / temperature)
+        by a generator seeded with ``seed``.  The device is synchronised
+        before each clock read."""
+        b = prompts.shape[0]
+        gen = (torch.Generator(device=self.device).manual_seed(seed) if temperature > 0
+               else None)
+        synchronize(self.device)
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(self.params, self.make_batch(prompts), self.max_len)
+        synchronize(self.device)
+        t_prefill = time.perf_counter() - t0
+        out = torch.empty((b, max_new), dtype=torch.int64, device=self.device)
+        tok = self._sample(logits, temperature, gen)
+        t0 = time.perf_counter()
+        for i in range(max_new):
+            out[:, i] = tok[:, 0]
+            logits, cache = self.model.decode_step(self.params, tok, cache)
+            tok = self._sample(logits, temperature, gen)
+        synchronize(self.device)
+        t_decode = time.perf_counter() - t0
+        return out.cpu().numpy().astype(np.int32), {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_tok_per_s": b * max_new / max(t_decode, 1e-9),
+        }
+
+    @staticmethod
+    def _sample(logits: torch.Tensor, temperature: float, gen) -> torch.Tensor:
+        if temperature <= 0:
+            return torch.argmax(logits, -1)[:, None]
+        probs = torch.softmax(logits.float() / temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=gen)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="serve random requests from an LM in batches")
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--requests", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the card, which must be present)")
+    args = ap.parse_args(argv)
+
+    server = Server(args.arch, smoke=args.smoke, model_parallel=args.model_parallel,
+                    max_len=args.prompt_len + args.max_new, seed=args.seed,
+                    device=args.device)
+    rng = np.random.default_rng(args.seed)
+    queue = rng.integers(0, server.vocab, (args.requests, args.prompt_len)).astype(np.int32)
+    done = 0
+    agg_tok_s, batches = [], 0
+    while done < args.requests:
+        chunk = queue[done: done + args.batch]
+        if chunk.shape[0] < args.batch:    # pad the final partial batch
+            pad = np.repeat(chunk[-1:], args.batch - chunk.shape[0], axis=0)
+            chunk = np.concatenate([chunk, pad], axis=0)
+        toks, stats = server.generate(chunk, args.max_new, temperature=args.temperature,
+                                      seed=args.seed + done)
+        done += args.batch
+        batches += 1
+        agg_tok_s.append(stats["decode_tok_per_s"])
+        print(f"batch {batches}: prefill {stats['prefill_s'] * 1e3:.1f}ms, "
+              f"decode {stats['decode_tok_per_s']:.1f} tok/s")
+    print(f"served {min(done, args.requests)} requests in {batches} batches; "
+          f"mean decode throughput {np.mean(agg_tok_s):.1f} tok/s")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the launch counters, and each path through its own kernels.
+version, the launch counters, and each path through its own kernels; and
+the transformer-family smoke models, card logits against CPU logits.
 
 Every test here needs an NVIDIA card (a CUDA kernel has no CPU mode) and
 skips without one.  This file imports neither JAX nor ``repro``, so it runs
@@ -1164,3 +1165,38 @@ def test_roofline_of_every_registered_program_on_the_card(cuda):
         assert r.kernel_launches == {k: v for k, v in kernels.launch_counts().items() if v}
         assert all(record(r).get(k) is not None for k in RECORD_KEYS), r.name
         assert r.dispatched_bytes >= r.work_bytes > 0, r.name
+
+
+# ------------------------------------------------------------- LM serving ---
+
+@pytest.mark.parametrize("arch_id", ["llama3-405b", "internlm2-20b", "qwen2-7b", "qwen3-14b",
+                                     "granite-moe-1b-a400m", "grok-1-314b", "qwen2-vl-7b"])
+def test_smoke_model_card_logits_equal_cpu(cuda, arch_id):
+    """Each transformer-family smoke model, its weights made on the CPU and
+    copied to the card: prefill and three decode steps (fed the CPU's
+    greedy tokens) give the CPU's logits within 1e-4 and 2e-3 (float32,
+    TF32 off; the decode steps read the bfloat16 KV cache, as in
+    ``tests/test_torch_models.py``), and ``Server.generate`` the CPU's
+    greedy tokens."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import layers
+
+    resolve_device(cuda)
+    host = Server(arch_id, max_len=24, seed=4, device="cpu")
+    card = Server(arch_id, max_len=24, seed=4, device=cuda)
+    card.params = layers.tree_map(lambda t: t.to(cuda), host.params)
+    prompts = np.random.default_rng(4).integers(0, host.vocab, (3, 12)).astype(np.int32)
+    caches = {}
+    for name, server in (("cpu", host), ("card", card)):
+        caches[name] = server.model.prefill(server.params, server.make_batch(prompts),
+                                            server.max_len)
+    steps = []
+    for _ in range(4):
+        (lh, ch), (lc, cc) = caches["cpu"], caches["card"]
+        steps.append(float((lc.cpu() - lh).abs().max()))
+        tok = torch.argmax(lh, -1)[:, None]
+        caches = {"cpu": host.model.decode_step(host.params, tok, ch),
+                  "card": card.model.decode_step(card.params, tok.to(cuda), cc)}
+    assert steps[0] <= 1e-4 and max(steps[1:]) <= 2e-3, steps
+    np.testing.assert_array_equal(card.generate(prompts, 8)[0], host.generate(prompts, 8)[0])

@@ -15,7 +15,8 @@ import torch
 EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 SMALL = {"torch_quickstart": ["--n", "2048", "--queries", "64"],
          "torch_knn_graph": ["--n", "2048"],
-         "torch_rag_retrieve": ["--corpus", "2048", "--requests", "6"]}
+         "torch_rag_retrieve": ["--corpus", "2048", "--requests", "6"],
+         "torch_rag_serve": ["--corpus", "2048", "--requests", "6"]}
 
 
 def _example(name: str):

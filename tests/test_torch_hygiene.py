@@ -89,6 +89,27 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     assert contracts.check_kernel_contracts(device="cpu") == []
 
 
+def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """``Server``, ``models.transformer.init`` and the serving CLI take the
+    card unless given ``device=``/``--device``, and raise without one."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import transformer
+
+    cfg = get_config("qwen2-7b").smoke_model
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server("qwen2-7b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init(cfg, torch.Generator())
+    assert Server("qwen2-7b", max_len=8, device="cpu").params["embed"]["table"].is_cpu
+    p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2-7b",
+                        "--requests", "1"], cwd=ROOT, capture_output=True, text=True,
+                       env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+                            "CUDA_VISIBLE_DEVICES": ""}, timeout=120)
+    assert p.returncode != 0 and "device='cpu'" in p.stderr
+
+
 def test_full_precision_matmul_is_pinned():
     from repro_torch.device import resolve_device
 
