@@ -265,8 +265,20 @@ Phases (any failure exits non-zero before the last line is printed):
    ``examples/torch_rag_serve.py`` in front of the full-size qwen2-7b
    ``Server``: 262,144 documents of dim 128, one index served as its f32
    and its int8 copy, 32 requests each; requests/s end to end, the build's
-   and the gather kernels' launches.  Each row of the ``kernels`` line
-   gains its ``phase14_launches``.
+   and the gather kernels' launches.  (d) the ssm, hybrid and encdec
+   families (float32 activations): card against CPU in float32 (TF32 off)
+   for mamba2-130m whole at a 160-token prompt (two SSD chunks with
+   padding), zamba2-2.7b cut to 18 layers (one use of its shared block)
+   and whisper-tiny whole (its frames widened to float32): greedy tokens
+   identical, logits within ``FAMILY_F32_TOL``; whisper-tiny again on the
+   bfloat16 frames as served, logits within ``LM_BF16_CARD_TOL`` of the
+   RMS; the three at full size through ``Server(arch, smoke=False)`` as
+   in (b), with the decode-consistency rule at ``FAMILY_CONSISTENCY_TOL`` and
+   ``FAMILY_ARGMAX_AGREE``; mamba2-130m's prefill of a 4,096-token prompt
+   and its decode rate after it and after 64 tokens; and the RAG stream of
+   (c) served by the full-size mamba2-130m behind (c)'s f32 index, which
+   must launch the f32 gather kernel.  Each row of the ``kernels`` line
+   gains its ``phase14_launches`` (14d's runs prefixed ``14d_``).
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -275,6 +287,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import json
@@ -2946,6 +2959,27 @@ LM_BF16_CARD_TOL = 0.1
 LM_BF16_CONSISTENCY_TOL = 0.5
 LM_ARGMAX_AGREE = 0.7
 RAG_CORPUS, RAG_DIM, RAG_REQUESTS = 2 ** 18, 128, 32
+# phase 14d: the ssm, hybrid and encdec families, all float32 activations.
+# (a) card against CPU: (architecture, layers kept (None: all), prompt);
+# mamba2's 160 tokens are two SSD chunks of 128 with padding, zamba2 keeps
+# one use of its shared block
+FAMILY_PARITY = (("mamba2-130m", None, 160), ("zamba2-2.7b", 18, 16), ("whisper-tiny", None, 16))
+# max |logit difference| of the prefill and of the decode steps: mamba2's
+# state is float32; zamba2 and whisper read bfloat16 KV caches, held as
+# phase 14a's LM_F32_TOL
+FAMILY_F32_TOL = {"mamba2-130m": (1e-4, 1e-4), "zamba2-2.7b": LM_F32_TOL,
+                  "whisper-tiny": LM_F32_TOL}
+# (b) full size: decode logits against forward's on each generated
+# sequence, the max error over the logits' RMS (float32 activations; the
+# bfloat16 KV caches of zamba2's shared block and whisper's decoder are the
+# only roundings), and the least share of the served tokens that are
+# forward's argmax; set from the card's readings with room (PERF.md
+# section 2)
+FAMILY_CONSISTENCY_TOL = 0.05
+FAMILY_ARGMAX_AGREE = 0.9
+FAMILY_RUNS = ("mamba2-130m", "zamba2-2.7b", "whisper-tiny")
+# (c) mamba2-130m's long prompt (32 SSD chunks) at batch 1
+FAMILY_LONG_PROMPT = 4096
 
 
 @contextlib.contextmanager
@@ -2972,30 +3006,44 @@ def _dropless(cfg):
     """``cfg`` with an MoE's capacity factor raised to E / k, so no copy is
     dropped at any number of tokens (capacity depends on the call's tokens,
     so prefill, decode and forward drop differently otherwise)."""
-    if cfg.moe is None:
+    if getattr(cfg, "moe", None) is None:
         return cfg
     return dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
 
 
-def _teacher_forced(server, seq, prompt_len: int, cfg=None):
+def _teacher_forced(server, seq, prompt_len: int, cfg=None, batch=None):
     """Logits [steps, B, V] (float32) of ``server``'s prefill of
-    ``seq[:, :prompt_len]`` and of its decode steps fed ``seq``'s next
-    tokens, under ``cfg`` (default: the server's config)."""
+    ``seq[:, :prompt_len]`` (``batch``, default its ``make_batch``) and of
+    its decode steps fed ``seq``'s next tokens, any family, under ``cfg``
+    (default: the server's config)."""
     import torch
 
-    from repro_torch.models import transformer
+    from repro_torch.models import model_zoo
 
-    cfg = cfg or server.model.config
-    batch = server.make_batch(seq[:, :prompt_len])
-    logits, cache = transformer.prefill(server.params, cfg, batch["tokens"], server.max_len,
-                                        positions=batch.get("positions"))
+    model = server.model if cfg is None else model_zoo.build(cfg, server.model.family)
+    batch = batch or server.make_batch(seq[:, :prompt_len])
+    logits, cache = model.prefill(server.params, batch, server.max_len)
     out = [logits]
     tok = torch.as_tensor(seq, device=server.device)
     for i in range(prompt_len, seq.shape[1] - 1):
-        logits, cache = transformer.decode_step(server.params, cfg, tok[:, i:i + 1], cache)
+        logits, cache = model.decode_step(server.params, tok[:, i:i + 1], cache)
         out.append(logits)
     return torch.stack(out)
+
+
+def _forward_logits(server, seq, prompt_len: int, cfg):
+    """Logits [B, T - prompt_len, V] of the model's whole-sequence
+    ``forward`` under ``cfg`` at the positions whose next token the
+    prefill and the decode steps predict (an encoder reads the prompt's
+    frames, as the prefill did)."""
+    from repro_torch.models import layers, model_zoo
+
+    batch = server.make_batch(seq)
+    if "frames" in batch:
+        batch["frames"] = server.make_batch(seq[:, :prompt_len])["frames"]
+    h = model_zoo.build(cfg, server.model.family).forward(server.params, batch)
+    return layers.unembed(server.params["embed"], h)[:, prompt_len - 1:-1]
 
 
 def _rms(t) -> float:
@@ -3052,19 +3100,23 @@ def _lm_parity(seed: int) -> dict:
     return out
 
 
-def _lm_run(arch_id: str, n_layers, seed: int) -> dict:
-    """(b): one architecture at full width (depth ``n_layers``, None: all)
-    on the card from a seed: ``LM_BATCHES`` batches of ``LM_BATCH``
-    requests, prompt ``LM_PROMPT``, ``LM_NEW`` new tokens; prefill ms,
-    decode tokens/s, peak device bytes; the last batch's prompts once more
-    under ``torch.profiler`` (device-busy seconds, idle share, top
-    kernels); then the decode-consistency rule on the last batch's
-    generated sequences (an MoE dropless, ``_dropless``)."""
+def _lm_run(arch_id: str, n_layers, seed: int, tol: float, agree_min: float,
+            tag: str = "phase14"):
+    """(b) and 14d (b): one architecture at full width (depth
+    ``n_layers``, None: all) on the card from a seed: ``LM_BATCHES``
+    batches of ``LM_BATCH`` requests, prompt ``LM_PROMPT``, ``LM_NEW`` new
+    tokens; prefill ms, decode tokens/s, peak device bytes; the last
+    batch's prompts once more under ``torch.profiler`` for
+    ``LM_TRACE_NEW`` tokens (device-busy seconds, idle share, top
+    kernels); then the decode-consistency rule on the last batch's generated sequences (an
+    MoE dropless, ``_dropless``): the largest logit error within ``tol``
+    times the logits' RMS, at least ``agree_min`` of the tokens
+    ``forward``'s argmax.  Returns the record and the server."""
     import numpy as np
     import torch
 
     from repro_torch.launch.serve import Server
-    from repro_torch.models import layers, transformer
+    from repro_torch.models import layers
     from repro_torch.trace_build import _region
 
     dev = torch.device("cuda")
@@ -3081,15 +3133,16 @@ def _lm_run(arch_id: str, n_layers, seed: int) -> dict:
     n_params = sum(t.numel() for t in leaves)
     param_bytes = sum(t.numel() * t.element_size() for t in leaves)
     del leaves
-    out = dict(arch=arch_id, layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
-               params=n_params, param_bytes=param_bytes, init_s=time.perf_counter() - t0,
-               batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW, batches=[])
+    out = dict(arch=arch_id, family=server.model.family, layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab, params=n_params, param_bytes=param_bytes,
+               init_s=time.perf_counter() - t0, batch=LM_BATCH, prompt=LM_PROMPT, new=LM_NEW,
+               batches=[])
     rng = np.random.default_rng(seed)
     for _ in range(LM_BATCHES):
         prompts = rng.integers(0, server.vocab, (LM_BATCH, LM_PROMPT)).astype(np.int32)
         toks, stats = server.generate(prompts, LM_NEW)
         check(toks.shape == (LM_BATCH, LM_NEW) and bool(((toks >= 0) & (toks < cfg.vocab)).all()),
-              f"phase14 {arch_id}: tokens out of range")
+              f"{tag} {arch_id}: tokens out of range")
         out["batches"].append(dict(prefill_ms=1e3 * stats["prefill_s"],
                                    decode_s=stats["decode_s"],
                                    decode_tok_per_s=stats["decode_tok_per_s"]))
@@ -3097,15 +3150,14 @@ def _lm_run(arch_id: str, n_layers, seed: int) -> dict:
     out["peak_above_held"] = out["peak_device_bytes"] - held
     # where a step's time goes: the last batch's prompts again, traced
     # (slower than untraced: the times above are the untraced ones)
+    t1 = time.perf_counter()
     out["trace"] = _region(f"generate {LM_TRACE_NEW} tokens",
                            lambda: server.generate(prompts, LM_TRACE_NEW))
+    out["trace_s"] = time.perf_counter() - t1
     # the decode-consistency rule on the last batch
     seq = np.concatenate([prompts, toks], axis=1)
     check_cfg = _dropless(cfg)
-    batch = server.make_batch(seq)
-    h, _ = transformer.forward(server.params, check_cfg, batch["tokens"],
-                               positions=batch.get("positions"))
-    full = layers.unembed(server.params["embed"], h)[:, LM_PROMPT - 1:-1].transpose(0, 1)
+    full = _forward_logits(server, seq, LM_PROMPT, check_cfg).transpose(0, 1)
     steps = _teacher_forced(server, seq, LM_PROMPT, check_cfg)
     errs = (steps - full).abs().amax(dim=(1, 2))
     rms = _rms(full)
@@ -3114,25 +3166,25 @@ def _lm_run(arch_id: str, n_layers, seed: int) -> dict:
                               logit_rms=rms, max_err_over_rms=float(errs.max()) / rms,
                               err_rms_over_rms=_rms(steps - full) / rms,
                               max_abs_logit=float(full.abs().max()),
-                              tol=LM_BF16_CONSISTENCY_TOL * rms, argmax_agrees=agree,
-                              dropless=cfg.moe is not None)
-    check(float(errs.max()) <= LM_BF16_CONSISTENCY_TOL * rms,
-          f"phase14 {arch_id}: decode logits off forward's by {float(errs.max())} > "
-          f"{LM_BF16_CONSISTENCY_TOL} x the logits' RMS {rms}")
-    check(agree >= LM_ARGMAX_AGREE,
-          f"phase14 {arch_id}: {agree} of the generated tokens are forward's argmax "
-          f"< {LM_ARGMAX_AGREE}")
-    del server, h, full, steps
-    torch.cuda.empty_cache()
-    return out
+                              tol=tol * rms, argmax_agrees=agree,
+                              dropless=check_cfg is not cfg)
+    check(float(errs.max()) <= tol * rms,
+          f"{tag} {arch_id}: decode logits off forward's by {float(errs.max())} > "
+          f"{tol} x the logits' RMS {rms}")
+    check(agree >= agree_min,
+          f"{tag} {arch_id}: {agree} of the generated tokens are forward's argmax "
+          f"< {agree_min}")
+    del full, steps
+    out["s"] = time.perf_counter() - t0
+    return out, server
 
 
 def phase_lm(seed: int) -> dict:
     """Phase 14: LM serving (``launch/serve.py::Server``, ``models/``) and
     the RAG example.  (a) ``_lm_parity``; (b) ``_lm_run`` for each of
-    ``LM_RUNS``; (c) ``_rag``.  The launch counters are set to 0 before
-    each path and read after it: the LM itself launches none of the port's
-    kernels."""
+    ``LM_RUNS``; (c) ``_rag``; (d) ``phase_families``.  The launch counters
+    are set to 0 before each path and read after it: the LM itself launches
+    none of the port's kernels."""
     import torch
 
     from repro_torch import kernels
@@ -3145,12 +3197,18 @@ def phase_lm(seed: int) -> dict:
     out["runs"] = {}
     for arch_id, n_layers in LM_RUNS:
         kernels.reset_launch_counts()
-        rec = _lm_run(arch_id, n_layers, seed)
+        rec, server = _lm_run(arch_id, n_layers, seed, LM_BF16_CONSISTENCY_TOL, LM_ARGMAX_AGREE)
+        del server
+        torch.cuda.empty_cache()
         out["launches"][arch_id] = _path_launches(f"phase14 {arch_id}", ())
         out["runs"][arch_id] = rec
         log("phase14 run", arch_id, json.dumps(rec))
-    out["rag"] = _rag(seed)
+    out["rag"], rag_state = _rag(seed)
     out["launches"].update({tag: out["rag"][tag]["launches"] for tag in ("rag_f32", "rag_int8")})
+    # the earlier models are gone; phase 14d reuses 14c's index
+    out["families"] = phase_families(seed, rag_state)
+    out["launches"].update({f"14d_{k}": v for k, v in out["families"]["launches"].items()})
+    log("phase14d s", round(out["families"]["s"], 3))
     return out
 
 
@@ -3207,8 +3265,171 @@ def _rag(seed: int) -> dict:
     # the same requests through both copies: the share of ids they agree on
     out["int8_ids_equal_f32"] = float((ids_by["int8"] == ids_by["f32"]).mean())
     log("phase14 rag int8_ids_equal_f32", out["int8_ids_equal_f32"])
-    del server
+    del server, retriever
     torch.cuda.empty_cache()
+    return out, dict(corpus=corpus, index=index, state=state)
+
+
+def _family_parity(arch_id: str, n_layers, prompt: int, seed: int) -> dict:
+    """(a): ``arch_id`` at full width (depth ``n_layers``, None: all), its
+    weights made once on the card and copied to the CPU.  float32 (TF32
+    off; whisper's bfloat16 stub frames widened to float32, so its encoder
+    runs float32 too): greedy tokens identical, prefill and decode logits
+    within ``FAMILY_F32_TOL``.  whisper also on its frames as served (the
+    encoder in bfloat16): logits on the CPU's greedy tokens within
+    ``LM_BF16_CARD_TOL`` times the CPU logits' RMS."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import layers
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    max_len = prompt + LM_PARITY_NEW
+    t0 = time.perf_counter()
+    with _arch_cut(n_layers):
+        card = Server(arch_id, smoke=False, max_len=max_len, seed=seed, device=cuda)
+    # the same server on the CPU: its parameters copied, no second init
+    # (the CPU's generator takes seconds a billion parameters)
+    host = copy.copy(card)
+    host.device, host.params = cpu, layers.tree_map(lambda t: t.cpu(), card.params)
+    out = dict(layers=host.model.config.n_layers, d_model=host.d_model, vocab=host.vocab,
+               prompt=prompt, init_s=time.perf_counter() - t0)
+    prompts = np.random.default_rng(seed).integers(
+        0, host.vocab, (LM_PARITY_BATCH, prompt)).astype(np.int32)
+    served = host.make_batch(prompts)
+    runs = {"float32": {k: v.float() if k == "frames" else v for k, v in served.items()}}
+    if "frames" in served:
+        runs["bfloat16"] = served
+    for name, batch in runs.items():
+        # the CPU's greedy continuation and its logits, then the card's
+        # logits on the CPU's tokens: the card's greedy tokens are the same
+        # exactly where its argmax is the CPU's at every step
+        lg, cache = host.model.prefill(host.params, batch, max_len)
+        steps = [lg]
+        for _ in range(LM_PARITY_NEW - 1):
+            lg, cache = host.model.decode_step(host.params, lg.argmax(-1)[:, None], cache)
+            steps.append(lg)
+        want = torch.stack(steps)
+        toks_cpu = want.argmax(-1).T.numpy()
+        seq = np.concatenate([prompts, toks_cpu], axis=1)
+        got = _teacher_forced(card, seq, prompt,
+                              batch={k: v.to(cuda) for k, v in batch.items()}).cpu()
+        toks_card = got.argmax(-1).T.numpy()
+        errs = (got - want).abs().amax(dim=(1, 2)).tolist()
+        rms = _rms(want)
+        if name == "float32":
+            check(np.array_equal(toks_cpu, toks_card),
+                  f"phase14d parity {arch_id}: card tokens {toks_card.tolist()} != CPU's "
+                  f"{toks_cpu.tolist()}")
+            tol = FAMILY_F32_TOL[arch_id]
+        else:
+            tol = (LM_BF16_CARD_TOL * rms,) * 2
+        out[name] = dict(prefill_err=errs[0], decode_errs=errs[1:], logit_rms=rms,
+                         max_err_over_rms=max(errs) / rms, tol=tol, tokens=toks_card.tolist(),
+                         tokens_equal=bool(np.array_equal(toks_cpu, toks_card)))
+        check(errs[0] <= tol[0] and max(errs[1:]) <= tol[1],
+              f"phase14d parity {arch_id} {name}: card logits off the CPU's by {errs} > {tol}")
+    out["s"] = time.perf_counter() - t0
+    del host, card
+    torch.cuda.empty_cache()
+    return out
+
+
+def _family_long(server, seed: int) -> dict:
+    """(c): the full-size mamba2-130m ``server``: prefill of a
+    ``FAMILY_LONG_PROMPT``-token prompt at batch 1, and the decode rate of
+    ``LM_NEW`` tokens after it and after an ``LM_PROMPT``-token prompt (the
+    decode state is O(1) in the context; no limit)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    out = {}
+    for name, t in (("long", FAMILY_LONG_PROMPT), ("short", LM_PROMPT)):
+        prompt = rng.integers(0, server.vocab, (1, t)).astype(np.int32)
+        server.generate(prompt, 2)                      # warm this shape
+        torch.cuda.reset_peak_memory_stats()
+        toks, stats = server.generate(prompt, LM_NEW)
+        check(toks.shape == (1, LM_NEW), f"phase14d long: tokens {toks.shape}")
+        out[name] = dict(prompt=t, prefill_ms=1e3 * stats["prefill_s"],
+                         decode_tok_per_s=stats["decode_tok_per_s"],
+                         peak_device_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _family_rag(server, rag_state: dict) -> dict:
+    """(d): ``RAG_REQUESTS`` requests of the RAG example's stream served by
+    the full-size mamba2-130m ``server`` behind phase 14c's f32 index (the
+    same corpus and payload stream; no second build; the SSM's decode
+    state needs no ``max_len`` for the longer RAG prompts).  The path must
+    launch the f32 gather kernel."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.launch.serve import Retriever
+
+    ex = _example("torch_rag_serve")
+    rag = ex._retrieval()
+    kernels.reset_launch_counts()
+    retriever = Retriever(rag_state["corpus"], rag_state["index"], points_dtype="f32",
+                          metric="mips", seed=0, device=server.device)
+    rng = np.random.default_rng()
+    rng.bit_generator.state = rag_state["state"]
+    doc_tokens, proj = rag.make_payloads(rng, RAG_CORPUS, server.vocab, RAG_DIM)
+    got = ex.serve_requests(rng, retriever, server, doc_tokens, proj, RAG_REQUESTS)
+    launches = _path_launches("phase14d rag_ssm", ("gather_distance",))
+    ids, toks = got["ids"], got["tokens"]
+    check(ids.shape == (RAG_REQUESTS, rag.TOPK) and bool(((ids >= 0) & (ids < RAG_CORPUS)).all()),
+          f"phase14d rag_ssm: ids {ids}")
+    check(toks.shape == (RAG_REQUESTS, ex.MAX_NEW), f"phase14d rag_ssm: tokens {toks.shape}")
+    del retriever
+    torch.cuda.empty_cache()
+    return dict(requests=RAG_REQUESTS, corpus=RAG_CORPUS, dim=RAG_DIM,
+                requests_per_s=got["requests_per_s"],
+                prefill_ms=[1e3 * s["prefill_s"] for s in got["stats"]],
+                decode_tok_per_s=[s["decode_tok_per_s"] for s in got["stats"]],
+                ids_head=ids[:4].tolist(), launches=launches)
+
+
+def phase_families(seed: int, rag_state: dict) -> dict:
+    """Phase 14d: the ssm, hybrid and encdec families.  (a)
+    ``_family_parity`` for each of ``FAMILY_PARITY``; (b) ``_lm_run`` for
+    each of ``FAMILY_RUNS`` at full size, the model dropped from the card
+    after its run; (c) ``_family_long`` and (d) ``_family_rag`` on the mamba2-130m
+    server.  The launch counters are set to 0 before each path and read
+    after it: the LMs launch none of the port's kernels."""
+    import torch
+
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "parity": {}, "runs": {}}
+    for arch_id, n_layers, prompt in FAMILY_PARITY:
+        kernels.reset_launch_counts()
+        out["parity"][arch_id] = _family_parity(arch_id, n_layers, prompt, seed)
+        out["launches"][f"parity_{arch_id}"] = _path_launches(f"phase14d parity {arch_id}", ())
+        log("phase14d parity", arch_id, json.dumps(out["parity"][arch_id]))
+    for arch_id in FAMILY_RUNS:
+        kernels.reset_launch_counts()
+        rec, server = _lm_run(arch_id, None, seed, FAMILY_CONSISTENCY_TOL, FAMILY_ARGMAX_AGREE,
+                              tag="phase14d")
+        out["launches"][arch_id] = _path_launches(f"phase14d {arch_id}", ())
+        out["runs"][arch_id] = rec
+        log("phase14d run", arch_id, json.dumps(rec))
+        if arch_id == "mamba2-130m":
+            kernels.reset_launch_counts()
+            out["long"] = _family_long(server, seed)
+            out["launches"]["long_mamba2-130m"] = _path_launches("phase14d long", ())
+            log("phase14d long", json.dumps(out["long"]))
+            out["rag"] = _family_rag(server, rag_state)
+            out["launches"]["rag_ssm"] = out["rag"]["launches"]
+            log("phase14d rag", json.dumps(out["rag"]))
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
     return out
 
 

@@ -25,7 +25,7 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.registry import PORTED_ARCH_IDS
+from repro_torch.configs.registry import ARCH_IDS
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.serve import RETRIEVER_DTYPES, Retriever, Server
 
@@ -76,7 +76,7 @@ def serve_requests(rng, retriever, server, doc_tokens, proj, requests: int) -> d
 def main(argv=None) -> dict:
     rag = _retrieval()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=PORTED_ARCH_IDS, default="qwen2-7b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="qwen2-7b")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--corpus", type=int, default=8192)

@@ -2,7 +2,7 @@
 
 What crosses between the packages is the dataset, the RBC leaves, the
 hyperplanes or sketches, the HashPrune reservoir, the built graph, a
-serving packing, and a transformer's parameters.  These functions take
+serving packing, and an LM's parameters.  These functions take
 that state as numpy arrays (never objects of the JAX package) and return
 the port's counterparts on ``device`` (default: the card).  Leaves and
 hyperplanes go straight to ``pipnn.build(leaves=..., hyperplanes=...)``.
@@ -31,12 +31,17 @@ def _leaf(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def transformer_from_arrays(params: dict, *, device=None) -> dict:
-    """The port's parameter tree of a transformer-family model
-    (``models.transformer``) from the reference's, given as numpy arrays
-    (``{"embed", "blocks", "final_norm"}``, every block leaf stacked on a
-    leading [L, ...] axis): the stacked leaves are split into one dict a
-    layer, each array kept in its dtype, on ``device``."""
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
+
+
+def lm_from_arrays(params: dict, *, device=None) -> dict:
+    """The port's parameter tree of an LM (``models.transformer``,
+    ``ssm_lm``, ``hybrid`` or ``encdec``) from the reference's, given as
+    numpy arrays: each stacked tree (``blocks``, ``enc_blocks``,
+    ``dec_blocks``: every leaf on a leading [L, ...] axis) split into a
+    list of one dict a layer; the rest (``embed``, the norms, the hybrid's
+    ``shared`` block) carried as it is; each array kept in its dtype, on
+    ``device``."""
     dev = resolve_device(device)
 
     def tree(node, pick=None):
@@ -45,10 +50,13 @@ def transformer_from_arrays(params: dict, *, device=None) -> dict:
         a = np.asarray(node)
         return _leaf(a if pick is None else a[pick], dev)
 
-    n_layers = len(np.asarray(params["blocks"]["ln1"]["scale"]))
-    return {"embed": tree(params["embed"]),
-            "blocks": [tree(params["blocks"], i) for i in range(n_layers)],
-            "final_norm": tree(params["final_norm"])}
+    def n_layers(node) -> int:
+        while isinstance(node, dict):
+            node = next(iter(node.values()))
+        return len(np.asarray(node))
+
+    return {k: [tree(v, i) for i in range(n_layers(v))] if k in STACKED else tree(v)
+            for k, v in params.items()}
 
 
 def index_from_arrays(graph, dists, start: int, *, metric: str = "l2",

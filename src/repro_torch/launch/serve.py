@@ -1,9 +1,10 @@
 """Batched LM serving and ANN retrieval for a serving stack (counterpart of
 ``repro/launch/serve.py``).
 
-``Server`` holds a transformer-family model's parameters on the device and
-serves request batches: one prefill a batch, then one decode step a token
-for every sequence, with greedy or temperature sampling.  Its CLI serves a
+``Server`` holds an LM's parameters on the device (any of the ten
+architectures: the transformer, SSM, hybrid and encoder-decoder families)
+and serves request batches: one prefill a batch, then one decode step a
+token for every sequence, with greedy or temperature sampling.  Its CLI serves a
 queue of random requests in batches:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b --full
@@ -105,11 +106,23 @@ class Retriever:
         return self.sv.device_bytes()
 
 
+def stub_frames(b: int, t: int, d: int, device) -> torch.Tensor:
+    """The encoder-decoder's stub frame embeddings [b, t, d] in bfloat16
+    (the audio frontend is not modelled): the reference's standard normal
+    draws of ``np.random.default_rng(0)``, rounded float64 -> float32 ->
+    bfloat16 as ``jnp.asarray`` rounds them (a direct rounding differs
+    where the float32 value is a bfloat16 tie)."""
+    frames = np.random.default_rng(0).standard_normal((b, t, d)).astype(np.float32)
+    return torch.from_numpy(frames).to(torch.bfloat16).to(device)
+
+
 class Server:
-    """A transformer-family model of ``arch_id`` (its smoke model unless
-    ``smoke=False``) with parameters made on ``device`` (default: the card,
-    which must be present) from ``seed``, serving prompts of up to
-    ``max_len`` tokens with their continuations.
+    """The model of ``arch_id`` (its smoke model unless ``smoke=False``)
+    with parameters made on ``device`` (default: the card, which must be
+    present) from ``seed``, serving prompts with their continuations of up
+    to ``max_len`` tokens in all; a generate past ``max_len`` raises
+    ``IndexError`` where the family keeps a KV cache, and serves in the
+    ``ssm`` family, whose decode state does not grow.
     ``model_parallel`` above 1 (tensor parallelism over cards) is not
     ported yet (ROADMAP.md section 1)."""
 
@@ -129,15 +142,18 @@ class Server:
         self.d_model = self.model.config.d_model
 
     def make_batch(self, tokens: np.ndarray) -> dict:
-        """The prefill batch of prompts [B, T]: their tokens and, for the
-        ``vlm`` family, M-RoPE positions [3, B, T] (text: all three
-        components the token's index)."""
+        """The prefill batch of prompts [B, T]: their tokens; for the
+        ``vlm`` family M-RoPE positions [3, B, T] (text: all three
+        components the token's index); for ``encdec`` the encoder's
+        ``stub_frames`` [B, T, D]."""
         b, t = tokens.shape
         batch = {"tokens": torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
                                            device=self.device)}
         if self.arch.family == "vlm":
             pos = torch.arange(t, device=self.device)
             batch["positions"] = pos[None, None].expand(3, b, t)
+        if self.arch.family == "encdec":
+            batch["frames"] = stub_frames(b, t, self.d_model, self.device)
         return batch
 
     def generate(self, prompts: np.ndarray, max_new: int, *, temperature: float = 0.0,

@@ -1,0 +1,196 @@
+"""Encoder-decoder transformer backbone, whisper-tiny (counterpart of
+``repro/models/encdec.py``).
+
+The audio frontend is a stub, as in the reference: the encoder takes
+precomputed frame embeddings [B, S, D].  Whisper's details kept:
+LayerNorm (not RMSNorm), non-gated GELU MLPs, attention with biases,
+sinusoidal absolute positions (no RoPE), a causal decoder with
+cross-attention into the encoder memory.  The decoder's activations are
+float32 (the reference casts nothing after the embedding); the encoder
+runs in the frames' dtype (bfloat16 under ``Server``).  The reference's
+loss and ``remat`` belong to training and are not here, nor its
+``attn_impl`` (every config runs ``layers._sdpa_flash``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.layers import AttnConfig, Params
+
+
+@dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    name: str
+    n_layers: int              # a stack (encoder and decoder)
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int | None = None
+    norm_eps: float = 1e-5
+    q_chunk: int = 512
+    k_chunk: int = 1024
+    param_dtype: Any = torch.float32
+    remat: bool = True         # training only: activation checkpointing
+    z_loss: float = 1e-4       # training only: the loss's z-loss
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    def attn_config(self, causal: bool) -> AttnConfig:
+        return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          n_kv_heads=self.n_kv_heads, head_dim=self.hd, qkv_bias=True,
+                          rope_theta=0.0, causal=causal, q_chunk=self.q_chunk,
+                          k_chunk=self.k_chunk, norm_eps=self.norm_eps)
+
+
+class EncDecCache(NamedTuple):
+    k: torch.Tensor        # [L, B, S, KV, hd] decoder self-attention keys
+    v: torch.Tensor
+    cross_k: torch.Tensor  # [L, B, S_enc, KV, hd] the memory's keys
+    cross_v: torch.Tensor
+    index: int             # next write position
+
+
+def _angles(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """[sin | cos] of ``pos`` [..., 1] (float32) over ``d`` / 2 frequencies."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    ang = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal(t: int, d: int, device=None) -> torch.Tensor:
+    """Positions 0..t-1 as [1, t, d] float32."""
+    return _angles(torch.arange(t, dtype=torch.float32, device=device)[:, None], d)[None]
+
+
+def _enc_block_init(cfg: EncDecConfig, generator, device) -> Params:
+    dt = cfg.param_dtype
+    return {"ln1": L.layernorm_init(cfg.d_model, dt, device),
+            "ln2": L.layernorm_init(cfg.d_model, dt, device),
+            "attn": L.attn_init(cfg.attn_config(False), generator, device, dt),
+            "mlp": L.mlp_init(cfg.d_model, cfg.d_ff, generator, device, gated=False, dtype=dt)}
+
+
+def _dec_block_init(cfg: EncDecConfig, generator, device) -> Params:
+    dt = cfg.param_dtype
+    return {"ln1": L.layernorm_init(cfg.d_model, dt, device),
+            "ln2": L.layernorm_init(cfg.d_model, dt, device),
+            "ln3": L.layernorm_init(cfg.d_model, dt, device),
+            "attn": L.attn_init(cfg.attn_config(True), generator, device, dt),
+            "cross": L.attn_init(cfg.attn_config(False), generator, device, dt),
+            "mlp": L.mlp_init(cfg.d_model, cfg.d_ff, generator, device, gated=False, dtype=dt)}
+
+
+def init(cfg: EncDecConfig, generator: torch.Generator, *, device=None) -> Params:
+    """Random parameters made on ``device`` (default: the card, which must
+    be present) from ``generator``, a ``torch.Generator`` of that device."""
+    dev = resolve_device(device)
+    dt = cfg.param_dtype
+    with torch.no_grad():
+        return {
+            "embed": L.embedding_init(cfg.vocab, cfg.d_model, generator, dev, dt),
+            "enc_blocks": [_enc_block_init(cfg, generator, dev) for _ in range(cfg.n_layers)],
+            "dec_blocks": [_dec_block_init(cfg, generator, dev) for _ in range(cfg.n_layers)],
+            "enc_norm": L.layernorm_init(cfg.d_model, dt, dev),
+            "dec_norm": L.layernorm_init(cfg.d_model, dt, dev),
+        }
+
+
+@torch.no_grad()
+def encode(params: Params, cfg: EncDecConfig, frames: torch.Tensor) -> torch.Tensor:
+    """frames: [B, S, D] precomputed frame embeddings (the frontend stub);
+    returns the memory [B, S, D] in the frames' dtype."""
+    b, s, d = frames.shape
+    x = frames + sinusoidal(s, d, frames.device).to(frames.dtype)
+    pos = L.token_positions(b, s, frames.device)
+    acfg = cfg.attn_config(False)
+    for blk in params["enc_blocks"]:
+        x = x + L.attention(blk["attn"], acfg, L.layernorm(blk["ln1"], x, cfg.norm_eps), pos)
+        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln2"], x, cfg.norm_eps))
+    return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def _cross_kv(blk: Params, cfg: EncDecConfig, memory: torch.Tensor):
+    b, s, _ = memory.shape
+    k = L.dense(blk["cross"]["wk"], memory).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    v = L.dense(blk["cross"]["wv"], memory).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    return k, v
+
+
+@torch.no_grad()
+def decode_train(params: Params, cfg: EncDecConfig, tokens: torch.Tensor,
+                 memory: torch.Tensor) -> torch.Tensor:
+    """The decoder over whole sequences (teacher forcing): hidden states
+    [B, T, D] after the final norm."""
+    b, t = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    x = x + sinusoidal(t, cfg.d_model, x.device).to(x.dtype)
+    pos = L.token_positions(b, t, x.device)
+    self_cfg, cross_cfg = cfg.attn_config(True), cfg.attn_config(False)
+    for blk in params["dec_blocks"]:
+        x = x + L.attention(blk["attn"], self_cfg, L.layernorm(blk["ln1"], x, cfg.norm_eps), pos)
+        x = x + L.attention(blk["cross"], cross_cfg, L.layernorm(blk["ln2"], x, cfg.norm_eps),
+                            pos, kv=_cross_kv(blk, cfg, memory))
+        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln3"], x, cfg.norm_eps))
+    return L.layernorm(params["dec_norm"], x, cfg.norm_eps)
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: EncDecConfig, frames: torch.Tensor, tokens: torch.Tensor,
+            max_len: int, cache_dtype=torch.bfloat16):
+    """Encode and decoder prefill.  Returns (last logits [B, V],
+    EncDecCache).  The prompt's cross-attention reads the memory's keys
+    and values as computed; the cache keeps their ``cache_dtype`` copy,
+    which the decode steps read (as the reference does)."""
+    memory = encode(params, cfg, frames)
+    b, t = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    x = x + sinusoidal(t, cfg.d_model, x.device).to(x.dtype)
+    pos = L.token_positions(b, t, x.device)
+    self_cfg, cross_cfg = cfg.attn_config(True), cfg.attn_config(False)
+    ks, vs, cks, cvs = [], [], [], []
+    for blk in params["dec_blocks"]:
+        y, (kc, vc) = L.attention_prefill(blk["attn"], self_cfg,
+                                          L.layernorm(blk["ln1"], x, cfg.norm_eps), pos, max_len)
+        x = x + y
+        ck, cv = _cross_kv(blk, cfg, memory)
+        x = x + L.attention(blk["cross"], cross_cfg, L.layernorm(blk["ln2"], x, cfg.norm_eps),
+                            pos, kv=(ck, cv))
+        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln3"], x, cfg.norm_eps))
+        for out, a in ((ks, kc), (vs, vc), (cks, ck), (cvs, cv)):
+            out.append(a.to(cache_dtype))
+    h = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], h[:, -1:])[:, 0]
+    return logits, EncDecCache(k=torch.stack(ks), v=torch.stack(vs), cross_k=torch.stack(cks),
+                               cross_v=torch.stack(cvs), index=t)
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: EncDecConfig, token: torch.Tensor, cache: EncDecCache):
+    """One decode step. token: [B, 1], at position ``cache.index`` (its
+    sinusoid computed in float32 from the index).  Returns (logits [B, V],
+    the cache one token on; the self-attention caches written in place)."""
+    x = L.embed(params["embed"], token)
+    # a fill on the device, not a copy from the host
+    pos = torch.full((1,), float(cache.index), device=x.device)
+    x = x + _angles(pos, cfg.d_model)[None].to(x.dtype)
+    self_cfg, cross_cfg = cfg.attn_config(True), cfg.attn_config(False)
+    pos1 = torch.full((x.shape[0], 1), cache.index, device=x.device)
+    for i, blk in enumerate(params["dec_blocks"]):
+        y, _ = L.attention_decode(blk["attn"], self_cfg, L.layernorm(blk["ln1"], x, cfg.norm_eps),
+                                  cache.index, (cache.k[i], cache.v[i]), cache.index)
+        x = x + y
+        x = x + L.attention(blk["cross"], cross_cfg, L.layernorm(blk["ln2"], x, cfg.norm_eps),
+                            pos1, kv=(cache.cross_k[i], cache.cross_v[i]))
+        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln3"], x, cfg.norm_eps))
+    h = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], h)[:, 0]
+    return logits, cache._replace(index=cache.index + 1)

@@ -1,0 +1,181 @@
+"""Hybrid SSM + shared-attention LM, zamba2-2.7b (counterpart of
+``repro/models/hybrid.py``).
+
+A deep Mamba2 backbone with ONE shared transformer block (MHA + SwiGLU
+MLP) applied after every ``attn_every`` Mamba2 layers: the same
+parameters, ``params["shared"]``, serve each of the ``n_apps`` uses (the
+reference's simplification of the released checkpoints: no LoRA deltas a
+use, no embedding concatenation).  The reference reshapes its stacked
+blocks to [n_apps, attn_every] and scans; the port loops.
+
+Decode state: each Mamba2 layer's conv window and SSM state, and one KV
+cache a use of the shared block ([n_apps, B, S, KV, hd], bfloat16 by
+default), written in place.  Activations are float32.  The reference's
+loss and ``remat`` belong to training and are not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models.layers import AttnConfig, Params
+from repro_torch.models.mamba2 import (
+    Mamba2Config,
+    Mamba2State,
+    mamba2_decode_step,
+    mamba2_forward,
+    mamba2_init,
+    mamba2_prefill_state,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    name: str
+    n_layers: int              # mamba2 layers
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    attn_every: int = 18       # the shared block follows every N mamba layers
+    d_state: int = 64
+    ssm_head_dim: int = 64
+    expand: int = 2
+    chunk: int = 128
+    head_dim: int | None = None
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    q_chunk: int = 512
+    param_dtype: Any = torch.float32
+    remat: bool = True         # training only: activation checkpointing
+    z_loss: float = 1e-4       # training only: the loss's z-loss
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def n_apps(self) -> int:
+        if self.n_layers % self.attn_every:
+            raise ValueError(f"n_layers {self.n_layers} is not a multiple of attn_every "
+                             f"{self.attn_every}")
+        return self.n_layers // self.attn_every
+
+    def attn_config(self) -> AttnConfig:
+        return AttnConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          n_kv_heads=self.n_kv_heads, head_dim=self.hd,
+                          rope_theta=self.rope_theta, q_chunk=self.q_chunk,
+                          norm_eps=self.norm_eps)
+
+    def mamba_config(self) -> Mamba2Config:
+        return Mamba2Config(d_model=self.d_model, d_state=self.d_state,
+                            head_dim=self.ssm_head_dim, expand=self.expand, chunk=self.chunk,
+                            norm_eps=self.norm_eps)
+
+
+class HybridCache(NamedTuple):
+    conv: torch.Tensor   # [L, B, W-1, conv_dim] float32
+    ssm: torch.Tensor    # [L, B, H, P, N] float32
+    k: torch.Tensor      # [n_apps, B, S, KV, hd]
+    v: torch.Tensor
+    index: int           # next write position
+
+
+def init(cfg: HybridConfig, generator: torch.Generator, *, device=None) -> Params:
+    """Random parameters made on ``device`` (default: the card, which must
+    be present) from ``generator``, a ``torch.Generator`` of that device."""
+    dev = resolve_device(device)
+    dt = cfg.param_dtype
+    mcfg = cfg.mamba_config()
+    with torch.no_grad():
+        embed = L.embedding_init(cfg.vocab, cfg.d_model, generator, dev, dt)
+        blocks = [{"ln": L.rmsnorm_init(cfg.d_model, dt, dev),
+                   "mamba": mamba2_init(mcfg, generator, dev, dt)}
+                  for _ in range(cfg.n_layers)]
+        shared = {"ln1": L.rmsnorm_init(cfg.d_model, dt, dev),
+                  "ln2": L.rmsnorm_init(cfg.d_model, dt, dev),
+                  "attn": L.attn_init(cfg.attn_config(), generator, dev, dt),
+                  "mlp": L.mlp_init(cfg.d_model, cfg.d_ff, generator, dev, dtype=dt)}
+        return {"embed": embed, "blocks": blocks, "shared": shared,
+                "final_norm": L.rmsnorm_init(cfg.d_model, dt, dev)}
+
+
+def _segments(params: Params, cfg: HybridConfig):
+    """The Mamba2 blocks in runs of ``attn_every``, one run a use of the
+    shared block, with each block's layer index."""
+    per = cfg.attn_every
+    blocks = list(enumerate(params["blocks"]))
+    return [blocks[a * per:(a + 1) * per] for a in range(cfg.n_apps)]
+
+
+@torch.no_grad()
+def forward(params: Params, cfg: HybridConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Hidden states [B, T, D] after the final norm."""
+    x = L.embed(params["embed"], tokens)
+    pos = L.token_positions(*tokens.shape, x.device)
+    mcfg, acfg, sh = cfg.mamba_config(), cfg.attn_config(), params["shared"]
+    for seg in _segments(params, cfg):
+        for _, blk in seg:
+            x = x + mamba2_forward(blk["mamba"], mcfg, L.rmsnorm(blk["ln"], x, cfg.norm_eps))
+        x = x + L.attention(sh["attn"], acfg, L.rmsnorm(sh["ln1"], x, cfg.norm_eps), pos)
+        x = x + L.mlp(sh["mlp"], L.rmsnorm(sh["ln2"], x, cfg.norm_eps))
+    return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+@torch.no_grad()
+def prefill(params: Params, cfg: HybridConfig, tokens: torch.Tensor, max_len: int,
+            cache_dtype=torch.bfloat16):
+    """Returns (last-token logits [B, V], HybridCache with KV caches of
+    ``max_len`` slots in ``cache_dtype``)."""
+    x = L.embed(params["embed"], tokens)
+    b, t = tokens.shape
+    pos = L.token_positions(b, t, x.device)
+    mcfg, acfg, sh = cfg.mamba_config(), cfg.attn_config(), params["shared"]
+    convs, ssms, ks, vs = [], [], [], []
+    for seg in _segments(params, cfg):
+        for _, blk in seg:
+            h = L.rmsnorm(blk["ln"], x, cfg.norm_eps)
+            y = mamba2_forward(blk["mamba"], mcfg, h)
+            st = mamba2_prefill_state(blk["mamba"], mcfg, h)
+            x = x + y
+            convs.append(st.conv)
+            ssms.append(st.ssm)
+        y, (kc, vc) = L.attention_prefill(sh["attn"], acfg, L.rmsnorm(sh["ln1"], x, cfg.norm_eps),
+                                          pos, max_len)
+        x = x + y
+        x = x + L.mlp(sh["mlp"], L.rmsnorm(sh["ln2"], x, cfg.norm_eps))
+        ks.append(kc.to(cache_dtype))
+        vs.append(vc.to(cache_dtype))
+    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], h[:, -1:])[:, 0]
+    return logits, HybridCache(conv=torch.stack(convs), ssm=torch.stack(ssms),
+                               k=torch.stack(ks), v=torch.stack(vs), index=t)
+
+
+@torch.no_grad()
+def decode_step(params: Params, cfg: HybridConfig, token: torch.Tensor, cache: HybridCache):
+    """One decode step. token: [B, 1], at position ``cache.index``.
+    Returns (logits [B, V], the cache one token on; states and KV caches
+    written in place)."""
+    x = L.embed(params["embed"], token)
+    mcfg, acfg, sh = cfg.mamba_config(), cfg.attn_config(), params["shared"]
+    for a, seg in enumerate(_segments(params, cfg)):
+        for i, blk in seg:
+            h = L.rmsnorm(blk["ln"], x, cfg.norm_eps)
+            y, st = mamba2_decode_step(blk["mamba"], mcfg, h,
+                                       Mamba2State(conv=cache.conv[i], ssm=cache.ssm[i]))
+            x = x + y
+            cache.conv[i] = st.conv
+            cache.ssm[i] = st.ssm
+        y, _ = L.attention_decode(sh["attn"], acfg, L.rmsnorm(sh["ln1"], x, cfg.norm_eps),
+                                  cache.index, (cache.k[a], cache.v[a]), cache.index)
+        x = x + y
+        x = x + L.mlp(sh["mlp"], L.rmsnorm(sh["ln2"], x, cfg.norm_eps))
+    h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], h)[:, 0]
+    return logits, cache._replace(index=cache.index + 1)

@@ -1,13 +1,15 @@
-"""Shared layers of the transformer family (counterpart of
+"""Shared layers of the LM families (counterpart of
 ``repro/models/layers.py``).
 
 Functional style, as the reference: parameters are nested dicts of
 tensors and every function takes its dict.  Attention covers GQA with any
-kv <= q head count, optional QKV bias (qwen2), optional qk-norm (qwen3),
-RoPE and M-RoPE (qwen2-vl), causal masks, KV-cache decode, and prefill
-as flash attention over [qc, kc] tiles (``_sdpa_flash``), so a 32k-token
-prefill never materializes a [T, T] logits buffer.  Norms, RoPE angles
-and softmax run in float32 whatever the activation dtype.
+kv <= q head count, optional QKV bias (qwen2, whisper), optional qk-norm
+(qwen3), RoPE and M-RoPE (qwen2-vl), causal masks, cross-attention into
+an encoder memory (whisper), KV-cache decode, and prefill as flash
+attention over [qc, kc] tiles (``_sdpa_flash``), so a 32k-token prefill
+never materializes a [T, T] logits buffer.  Norms, RoPE angles and
+softmax run in float32 whatever the activation dtype; the activations
+(``silu``, ``gelu``) round each step to the input's dtype, as XLA does.
 
 Attention is plain PyTorch following the reference's recurrence; the
 reference computes it in XLA, not in a Pallas kernel.  The reference's
@@ -21,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,6 +59,11 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
 
 
 def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -157,22 +165,36 @@ def attn_init(cfg: AttnConfig, generator: torch.Generator, device,
     return p
 
 
-def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+def token_positions(b: int, t: int, device) -> torch.Tensor:
+    """Positions [B, T] of a text sequence: each row 0 .. T - 1."""
+    return torch.arange(t, device=device)[None].expand(b, t)
+
+
+def _rotate_heads(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, T, heads, hd] rotated by its positions (M-RoPE, RoPE, or
+    none at ``rope_theta`` 0)."""
+    if cfg.mrope_sections is not None:
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
+    if cfg.rope_theta > 0:
+        return apply_rope(x, positions if positions.dim() == 2 else positions[0], cfg.rope_theta)
+    return x
+
+
+def _project_q(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
     b, t, _ = x.shape
     q = dense(p["wq"], x).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+    return _rotate_heads(cfg, q, positions)
+
+
+def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
+    b, t, _ = x.shape
     k = dense(p["wk"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     v = dense(p["wv"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-    if cfg.mrope_sections is not None:
-        q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
-        k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    elif cfg.rope_theta > 0:
-        pos2 = positions if positions.dim() == 2 else positions[0]
-        q = apply_rope(q, pos2, cfg.rope_theta)
-        k = apply_rope(k, pos2, cfg.rope_theta)
-    return q, k, v
+    return _project_q(p, cfg, x, positions), _rotate_heads(cfg, k, positions), v
 
 
 def _pad_time(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -224,13 +246,19 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int, q_offset: 
     return out[:, :t].to(q.dtype)
 
 
-def attention(p: Params, cfg: AttnConfig, x: torch.Tensor,
-              positions: torch.Tensor) -> torch.Tensor:
-    """x: [B, T, D]; positions: [B, T], or [3, B, T] for M-RoPE.  (The
-    reference's cross-attention memory ``kv=`` comes with the encoder-decoder
-    family.)"""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _sdpa_flash(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              kv: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """x: [B, T, D]; positions: [B, T], or [3, B, T] for M-RoPE.  With
+    ``kv`` (the cross-attention memory's keys and values, [B, S, KV, hd]
+    each) the queries attend to it, unmasked; the reference projects the
+    query's own keys and values there too and drops them, so they are not
+    computed here."""
+    if kv is None:
+        q, k, v = _project_qkv(p, cfg, x, positions)
+    else:
+        q, (k, v) = _project_q(p, cfg, x, positions), kv
+    out = _sdpa_flash(q, k, v, causal=cfg.causal and kv is None, q_chunk=cfg.q_chunk,
+                      k_chunk=cfg.k_chunk)
     b, t = x.shape[:2]
     return dense(p["wo"], out.reshape(b, t, cfg.n_heads * cfg.head_dim))
 
@@ -295,12 +323,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def _const(v: float, dtype) -> float:
+    """``v`` rounded to ``dtype``, as XLA rounds a constant to its operand's
+    type before the op."""
+    return float(torch.tensor(v, dtype=dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default tanh form,
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``, with
+    its constants and each step rounded to ``x``'s dtype as XLA computes
+    it (``F.gelu(approximate="tanh")`` rounds once: off by an ulp on 4.5%
+    of bfloat16 inputs).  Equal to XLA's over every normal bfloat16 in
+    [-20, 20]; XLA flushes subnormal results to zero."""
+    inner = x + _const(0.044715, x.dtype) * (x * (x * x))
+    return x * (0.5 * (1.0 + torch.tanh(_const(np.sqrt(2 / np.pi), x.dtype) * inner)))
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     up = dense(p["w_up"], x)
     if "w_gate" in p:
         up = silu(dense(p["w_gate"], x)) * up                     # SwiGLU
     else:
-        up = F.gelu(up, approximate="tanh")    # jax.nn.gelu's default
+        up = gelu(up)
     return dense(p["w_down"], up)
 
 

@@ -115,9 +115,7 @@ def _ffn(cfg: TransformerConfig, blk: Params, h: torch.Tensor):
 
 
 def _positions(positions, b: int, t: int, device) -> torch.Tensor:
-    if positions is None:
-        return torch.arange(t, device=device)[None].expand(b, t)
-    return positions
+    return L.token_positions(b, t, device) if positions is None else positions
 
 
 @torch.no_grad()

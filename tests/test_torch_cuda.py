@@ -1170,14 +1170,17 @@ def test_roofline_of_every_registered_program_on_the_card(cuda):
 # ------------------------------------------------------------- LM serving ---
 
 @pytest.mark.parametrize("arch_id", ["llama3-405b", "internlm2-20b", "qwen2-7b", "qwen3-14b",
-                                     "granite-moe-1b-a400m", "grok-1-314b", "qwen2-vl-7b"])
+                                     "granite-moe-1b-a400m", "grok-1-314b", "qwen2-vl-7b",
+                                     "whisper-tiny", "mamba2-130m", "zamba2-2.7b"])
 def test_smoke_model_card_logits_equal_cpu(cuda, arch_id):
-    """Each transformer-family smoke model, its weights made on the CPU and
-    copied to the card: prefill and three decode steps (fed the CPU's
-    greedy tokens) give the CPU's logits within 1e-4 and 2e-3 (float32,
-    TF32 off; the decode steps read the bfloat16 KV cache, as in
-    ``tests/test_torch_models.py``), and ``Server.generate`` the CPU's
-    greedy tokens."""
+    """Each smoke model, its weights made on the CPU and copied to the
+    card: prefill and three decode steps (fed the CPU's greedy tokens) give
+    the CPU's logits within 1e-4 and 2e-3 (float32, TF32 off; the decode
+    steps read the bfloat16 KV cache, as in ``tests/test_torch_models.py``;
+    the ssm family's float32 state within 1e-4; whisper's frames widened to
+    float32, as chip_smoke phase 14d(a)), and ``Server.generate`` the CPU's
+    greedy tokens (not whisper's: its ``Server`` encodes bfloat16 frames,
+    whose products the card and the CPU round apart)."""
     from repro_torch.device import resolve_device
     from repro_torch.launch.serve import Server
     from repro_torch.models import layers
@@ -1189,8 +1192,10 @@ def test_smoke_model_card_logits_equal_cpu(cuda, arch_id):
     prompts = np.random.default_rng(4).integers(0, host.vocab, (3, 12)).astype(np.int32)
     caches = {}
     for name, server in (("cpu", host), ("card", card)):
-        caches[name] = server.model.prefill(server.params, server.make_batch(prompts),
-                                            server.max_len)
+        batch = server.make_batch(prompts)
+        if "frames" in batch:
+            batch["frames"] = batch["frames"].float()
+        caches[name] = server.model.prefill(server.params, batch, server.max_len)
     steps = []
     for _ in range(4):
         (lh, ch), (lc, cc) = caches["cpu"], caches["card"]
@@ -1198,5 +1203,39 @@ def test_smoke_model_card_logits_equal_cpu(cuda, arch_id):
         tok = torch.argmax(lh, -1)[:, None]
         caches = {"cpu": host.model.decode_step(host.params, tok, ch),
                   "card": card.model.decode_step(card.params, tok.to(cuda), cc)}
-    assert steps[0] <= 1e-4 and max(steps[1:]) <= 2e-3, steps
-    np.testing.assert_array_equal(card.generate(prompts, 8)[0], host.generate(prompts, 8)[0])
+    decode_tol = 1e-4 if host.model.family == "ssm" else 2e-3
+    assert steps[0] <= 1e-4 and max(steps[1:]) <= decode_tol, steps
+    if host.model.family != "encdec":
+        np.testing.assert_array_equal(card.generate(prompts, 8)[0], host.generate(prompts, 8)[0])
+
+
+def test_whisper_bfloat16_frames_card_logits_near_cpu(cuda):
+    """whisper-tiny's smoke model on the ``Server``'s bfloat16 frames (the
+    encoder in bfloat16, as served), its weights made on the CPU and copied
+    to the card: prefill and three decode steps fed the CPU's greedy
+    tokens give the CPU's logits within 0.1 of their RMS, as chip_smoke
+    holds the bfloat16 paths on the card (``LM_BF16_CARD_TOL``)."""
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import layers
+
+    resolve_device(cuda)
+    host = Server("whisper-tiny", max_len=24, seed=4, device="cpu")
+    card = Server("whisper-tiny", max_len=24, seed=4, device=cuda)
+    card.params = layers.tree_map(lambda t: t.to(cuda), host.params)
+    prompts = np.random.default_rng(4).integers(0, host.vocab, (3, 12)).astype(np.int32)
+    caches = {name: server.model.prefill(server.params, server.make_batch(prompts),
+                                         server.max_len)
+              for name, server in (("cpu", host), ("card", card))}
+    assert caches["card"][1].cross_k.dtype == torch.bfloat16
+    want, got = [], []
+    for _ in range(4):
+        (lh, ch), (lc, cc) = caches["cpu"], caches["card"]
+        want.append(lh)
+        got.append(lc.cpu())
+        tok = torch.argmax(lh, -1)[:, None]
+        caches = {"cpu": host.model.decode_step(host.params, tok, ch),
+                  "card": card.model.decode_step(card.params, tok.to(cuda), cc)}
+    want, got = torch.stack(want), torch.stack(got)
+    rms = float(want.pow(2).mean().sqrt())
+    assert float((got - want).abs().max()) <= 0.1 * rms

@@ -5,7 +5,7 @@ The reference's ``Server`` cannot be built on this container's JAX (its
 mesh-sharded ``jit`` raises), so the port is held against the loop of
 ``Server.generate`` rebuilt from ``repro.models.model_zoo.build(...)``'s
 jitted ``prefill`` and ``decode_step``: greedy tokens identical, with the
-reference's parameters carried across by ``convert.transformer_from_arrays``.
+reference's parameters carried across by ``convert.lm_from_arrays``.
 The RAG example retrieves the ids and generates the tokens of
 ``examples/rag_serve.py`` itself, run with the reference ``Retriever``
 (both packages built with the same dyadic hyperplanes) and a ``Server``
@@ -25,7 +25,7 @@ from repro.configs.registry import get_config as j_get_config
 from repro.core import sketch as jsketch
 from repro.launch.serve import Retriever as JRetriever
 from repro.models import model_zoo as j_zoo
-from repro_torch.convert import transformer_from_arrays
+from repro_torch.convert import lm_from_arrays
 from repro_torch.core import sketch as tsketch
 from repro_torch.data import dyadic_hyperplanes
 from repro_torch.launch import serve
@@ -71,7 +71,7 @@ def _server_with(params, arch_id: str, max_len: int) -> serve.Server:
     """A CPU ``Server`` of ``arch_id``'s smoke model holding the reference's
     ``params``."""
     server = serve.Server(arch_id, smoke=True, max_len=max_len, device=CPU)
-    server.params = transformer_from_arrays(jax.tree.map(np.asarray, params), device=CPU)
+    server.params = lm_from_arrays(jax.tree.map(np.asarray, params), device=CPU)
     return server
 
 
@@ -103,8 +103,9 @@ def test_server_batch_sampling_and_limits():
         server.generate(prompts, 8)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         serve.Server("qwen2-7b", model_parallel=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.Server("mamba2-130m", device=CPU)
+    # the ssm family (ported since) builds and serves
+    toks, _ = serve.Server("mamba2-130m", max_len=12, device=CPU).generate(prompts, 6)
+    assert toks.shape == (2, 6) and ((toks >= 0) & (toks < 256)).all()
 
 
 def test_cli_main_serves_on_the_cpu(capsys):
@@ -123,15 +124,10 @@ def _example(name: str):
     return mod
 
 
-def test_rag_example_equals_reference(capsys):
-    """``examples/rag_serve.py`` itself (its defaults, ``--corpus 2048``, 6
-    requests in batches of 4 and 2), its ``Retriever`` the reference's with
-    each batch's ids recorded and its ``Server`` the reference loop over the
-    reference's smoke model, against ``examples/torch_rag_serve.py`` with
-    the same parameters: the same ids and the same tokens."""
+def _rag_example_against_reference(arch_id: str, capsys):
     corpus_n, requests = 2048, 6
     mod, ref = _example("torch_rag_serve"), _example("rag_serve")
-    arch, model, params = _reference("qwen2-7b")
+    arch, model, params = _reference(arch_id)
     hp = dyadic_hyperplanes(3, 12, mod._retrieval().DIM)
     want = {"ids": [], "tokens": []}
 
@@ -144,8 +140,8 @@ def test_rag_example_equals_reference(capsys):
     class RefServer:
         """``repro.launch.serve.Server``'s interface over the reference loop."""
 
-        def __init__(self, arch_id, *, smoke, max_len):
-            assert arch_id == "qwen2-7b" and smoke
+        def __init__(self, arch_id_, *, smoke, max_len):
+            assert arch_id_ == arch_id and smoke
             self.vocab, self.max_len = arch.smoke_model.vocab, max_len
 
         def generate(self, prompts, max_new):
@@ -158,14 +154,14 @@ def test_rag_example_equals_reference(capsys):
         mp.setattr(jsketch, "make_hyperplanes",
                    lambda key, m, d, dtype=jnp.float32: jnp.asarray(hp))
         mp.setattr(tsketch, "make_hyperplanes", lambda seed, m, d: hp)
-        mp.setattr(mod, "Server", lambda arch_id, *, smoke, max_len, device:
-                   _server_with(params, arch_id, max_len))
+        mp.setattr(mod, "Server", lambda arch_id_, *, smoke, max_len, device:
+                   _server_with(params, arch_id_, max_len))
         got = mod.main(["--corpus", str(corpus_n), "--requests", str(requests),
-                        "--device", CPU])
+                        "--arch", arch_id, "--device", CPU])
         mp.setattr(ref, "Retriever", RefRetriever)
         mp.setattr(ref, "Server", RefServer)
         mp.setattr(sys, "argv", ["rag_serve.py", "--corpus", str(corpus_n),
-                                 "--requests", str(requests)])
+                                 "--requests", str(requests), "--arch", arch_id])
         ref.main()
     finally:
         mp.undo()
@@ -173,3 +169,18 @@ def test_rag_example_equals_reference(capsys):
     np.testing.assert_array_equal(got["ids"], np.concatenate(want["ids"]))
     np.testing.assert_array_equal(got["tokens"], np.concatenate(want["tokens"]))
     assert capsys.readouterr().out.count("[done] 6 RAG requests") == 2
+
+
+def test_rag_example_equals_reference(capsys):
+    """``examples/rag_serve.py`` itself (its defaults, ``--corpus 2048``, 6
+    requests in batches of 4 and 2), its ``Retriever`` the reference's with
+    each batch's ids recorded and its ``Server`` the reference loop over the
+    reference's smoke model, against ``examples/torch_rag_serve.py`` with
+    the same parameters: the same ids and the same tokens."""
+    _rag_example_against_reference("qwen2-7b", capsys)
+
+
+def test_rag_example_equals_reference_ssm(capsys):
+    """The same with ``--arch mamba2-130m``: the RAG loop in front of the
+    SSM."""
+    _rag_example_against_reference("mamba2-130m", capsys)

@@ -4,7 +4,7 @@ against the JAX package on the CPU.
 The same inputs, made from a seed with numpy, go through ``repro.models``
 (jitted, no mesh, as ``tests/test_arch_smoke.py`` runs it) and the port;
 the reference's parameters are carried across with
-``convert.transformer_from_arrays``.  Tolerances:
+``convert.lm_from_arrays``.  Tolerances:
 
 - the layers (norms, RoPE, M-RoPE, flash attention, decode attention,
   MLP, unembedding): 2e-5, the reference's own in
@@ -36,10 +36,11 @@ from repro.configs.registry import get_config as j_get_config
 from repro.models import layers as JL
 from repro.models import model_zoo as j_zoo
 from repro.models import moe as JM
+from repro.models import encdec as JE
 from repro.models import transformer as JT
 from repro_torch.configs import registry
 from repro_torch.configs.base import SHAPES, pad_to_multiple
-from repro_torch.convert import transformer_from_arrays
+from repro_torch.convert import lm_from_arrays
 from repro_torch.models import layers as TL
 from repro_torch.models import model_zoo as t_zoo
 from repro_torch.models import moe as TM
@@ -278,7 +279,12 @@ def _batch(family, b, t, seed, vocab):
     return jb, tb
 
 
-@pytest.mark.parametrize("arch_id", registry.PORTED_ARCH_IDS)
+# the transformer family's archs; tests/test_torch_lm_families.py holds the others
+TRANSFORMER_ARCH_IDS = [a for a in registry.ARCH_IDS
+                        if registry.get_config(a).family in ("dense", "moe", "vlm")]
+
+
+@pytest.mark.parametrize("arch_id", TRANSFORMER_ARCH_IDS)
 def test_smoke_model_matches_reference(arch_id):
     """Prefill logits to 1e-4, three greedy decode steps to 2e-3 (the
     bfloat16 cache), the cache's index, and the port's own cache equal to
@@ -287,7 +293,7 @@ def test_smoke_model_matches_reference(arch_id):
     jm = j_zoo.build(ja.smoke_model, ja.family)
     tm = t_zoo.build(ta.smoke_model, ta.family)
     jp = jm.init(jax.random.PRNGKey(11))
-    tp = transformer_from_arrays(jax.tree.map(np.asarray, jp), device=CPU)
+    tp = lm_from_arrays(jax.tree.map(np.asarray, jp), device=CPU)
     jb, tb = _batch(ja.family, 2, 13, 12, ja.smoke_model.vocab)
     jl, jc = jax.jit(lambda p, b: jm.prefill(p, b, 20))(jp, jb)
     tl, tc = tm.prefill(tp, tb, 20)
@@ -328,7 +334,7 @@ def test_smoke_model_matches_reference_in_published_dtypes(arch_id):
                                param_dtype=ta.model.param_dtype)
     jm, tm = j_zoo.build(jcfg, ja.family), t_zoo.build(tcfg, ta.family)
     jp = jm.init(jax.random.PRNGKey(11))
-    tp = transformer_from_arrays(jax.tree.map(np.asarray, jp), device=CPU)
+    tp = lm_from_arrays(jax.tree.map(np.asarray, jp), device=CPU)
     jb, tb = _batch(ja.family, 2, 13, 12, jcfg.vocab)
     strict = {"xla_allow_excess_precision": False}
     jl, jc = jax.jit(lambda p, b: jm.prefill(p, b, 20), compiler_options=strict)(jp, jb)
@@ -384,9 +390,18 @@ def test_init_on_the_device_and_the_families():
     assert 0.015 < float(p["embed"]["table"].std()) < 0.025
     w = p["blocks"][0]["attn"]["wq"]["w"]
     assert abs(float(w.std()) * 64 ** 0.5 - 1.0) < 0.1
-    for family in t_zoo.NOT_PORTED_FAMILIES:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            t_zoo.build(cfg, family)
+    # every family builds, and its smoke model serves a prefill and a step
+    for arch_id in ("whisper-tiny", "mamba2-130m", "zamba2-2.7b"):
+        arch = registry.get_config(arch_id)
+        model = t_zoo.build(arch.smoke_model, arch.family)
+        params = model.init(torch.Generator().manual_seed(0), CPU)
+        batch = {"tokens": torch.zeros((2, 3), dtype=torch.int64)}
+        if arch.family == "encdec":
+            batch["frames"] = torch.zeros((2, 3, arch.smoke_model.d_model))
+        logits, cache = model.prefill(params, batch, 5)
+        logits, cache = model.decode_step(params, logits.argmax(-1)[:, None], cache)
+        assert tuple(logits.shape) == (2, arch.smoke_model.vocab) and cache.index == 4
+        assert bool(torch.isfinite(logits).all())
     with pytest.raises(ValueError):
         t_zoo.build(cfg, "rnn")
 
@@ -409,6 +424,8 @@ def _fields_equal(got, want, where):
         assert wf - gf == {"act_sharding", "moe_impl", "attn_impl"}
         assert want.act_sharding is None and want.moe_impl == "gspmd"
         assert want.attn_impl == "flash"
+    elif isinstance(want, JE.EncDecConfig):
+        assert wf - gf == {"attn_impl"} and want.attn_impl == "flash"
     else:
         assert gf == wf, where
     for name in sorted(gf):
@@ -419,7 +436,7 @@ def _fields_equal(got, want, where):
             assert g == _mapped(w), f"{where}.{name}: {g!r} != {w!r}"
 
 
-@pytest.mark.parametrize("arch_id", registry.PORTED_ARCH_IDS)
+@pytest.mark.parametrize("arch_id", registry.ARCH_IDS)
 def test_config_fields_equal_reference(arch_id):
     got, want = registry.get_config(arch_id), j_get_config(arch_id)
     _fields_equal(got, want, arch_id)
@@ -427,7 +444,12 @@ def test_config_fields_equal_reference(arch_id):
     assert got.skipped_cells() == want.skipped_cells()
     for shape in SHAPES:
         assert got.microbatch(shape) == want.microbatch(shape)
-    assert got.model.hd == want.model.hd and got.smoke_model.hd == want.smoke_model.hd
+    if hasattr(want.model, "hd"):
+        assert got.model.hd == want.model.hd and got.smoke_model.hd == want.smoke_model.hd
+    if hasattr(want.model, "mamba_config"):
+        for g, w in ((got.model, want.model), (got.smoke_model, want.smoke_model)):
+            _fields_equal(g.mamba_config(), w.mamba_config(), f"{arch_id}.mamba_config")
+            assert g.mamba_config().n_heads == w.mamba_config().n_heads
 
 
 def test_registry_and_shapes():
@@ -435,13 +457,12 @@ def test_registry_and_shapes():
     from repro.configs.registry import ARCH_IDS as J_IDS
 
     assert registry.ARCH_IDS == J_IDS
-    assert set(registry.PORTED_ARCH_IDS) | set(registry.NOT_PORTED) == set(J_IDS)
+    # every family is ported: each arch resolves to its own config
+    assert [(registry.get_config(a).arch_id, registry.get_config(a).family) for a in J_IDS] == \
+        [(a, j_get_config(a).family) for a in J_IDS]
     assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.astuple(v) for k, v in jbase.SHAPES.items()}
     assert pad_to_multiple(49155, 16) == jbase.pad_to_multiple(49155, 16) == 49168
-    for arch_id in registry.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            registry.get_config(arch_id)
     with pytest.raises(KeyError):
         registry.get_config("gpt-5")
-    assert list(registry.all_configs()) == registry.PORTED_ARCH_IDS
+    assert list(registry.all_configs()) == registry.ARCH_IDS
