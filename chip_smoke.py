@@ -29,7 +29,8 @@ Phases (any failure exits non-zero before the last line is printed):
    products on the tensor cores with three TF32 products per float32
    product (3xTF32), so its bound is those at the TF32 peak; the f32
    CUDA-core bound of the same products stands beside it.
-2. small parity: n = 65,536 built on the card and on the CPU must give the
+2. small parity: n = ``--n-small`` (32,768; 65,536 until phase 15 came)
+   built on the card and on the CPU must give the
    identical graph and entry point, and search must give equal recall.
    Why this can be exact: with integer data below 2048 whose sums stay
    below 2^24 every norm, dot product and distance is exact in float32 in
@@ -101,8 +102,9 @@ Phases (any failure exits non-zero before the last line is printed):
    (4, 2), k 2, max_deg 32) on one carve's leaves and dyadic hyperplanes:
    recall@10 at beam 64, degree, ``build_leaves`` seconds and launches;
    ``robust_prune`` streamed equals flat; then each method on the card and
-   on the CPU at ``--n-cpu`` points (16,384: its own data; the CPU's
-   all-to-all ``robust_prune`` takes minutes at 65,536), identical
+   on the CPU at ``--n-cpu`` points (8,192 since phase 15 came: its own
+   data; the CPU's all-to-all ``robust_prune`` takes minutes at 65,536 and
+   57-91 s at 16,384), identical
    graphs.  (e) The host search (``search(batch=False)``, no kernel) on
    200 of the queries at beam 64 beside the serving path on the same
    queries, and the legacy ``beam_search_single`` on the card for every
@@ -131,7 +133,8 @@ Phases (any failure exits non-zero before the last line is printed):
    ``BENCH_qps.json``'s format): every request answered, structured errors
    exactly on the poisoned rows, one tombstone and one re-admission,
    degraded recall at least 0.85 of healthy.  (d) The loop on the single
-   card index, the 10,000 queries submitted 256 at a time: two-phase and
+   card index, the first 5,000 queries (``LOOP_REQUESTS``; 10,000 until
+   phase 15 came) submitted 256 at a time: two-phase and
    single-phase p50 / p99 latency, throughput, stragglers rerun, and the
    phase-1-drained rows bit-identical between the two; open-loop Poisson
    arrivals at 50% and 120% of the two-phase throughput (p50 / p99,
@@ -253,7 +256,8 @@ Phases (any failure exits non-zero before the last line is printed):
    full size, and qwen2-vl-7b at full width cut to 4 layers (M-RoPE),
    built on the card from the seed: 3 batches of 8 requests, prompt 64,
    32 new tokens; prefill ms, decode tokens/s, peak device bytes; the last
-   batch's prompts traced for 8 tokens (device-busy share, top kernels);
+   batch's prompts traced for 4 tokens (device-busy share, top kernels;
+   8 before phase 15 came);
    the decode-consistency rule on the last batch (prefill and decode
    logits against ``forward``'s on the generated sequences in bfloat16,
    within ``LM_BF16_CONSISTENCY_TOL`` times the logits' RMS, and at least
@@ -279,6 +283,37 @@ Phases (any failure exits non-zero before the last line is printed):
    (c) served by the full-size mamba2-130m behind (c)'s f32 index, which
    must launch the f32 gather kernel.  Each row of the ``kernels`` line
    gains its ``phase14_launches`` (14d's runs prefixed ``14d_``).
+15. LM training (``launch/train.py``, ``launch/steps.py::make_train_step``,
+   ``optim/adamw.py``, ``checkpoint/``; no kernel of the port runs in it),
+   after phase 14's models are freed.  (a) Card against CPU in float32
+   activations (TF32 off): one ``make_train_step`` of two microbatches,
+   batch 4, seq 64, on mamba2-130m whole and qwen2-7b at full width (d_model
+   3584, vocab 152,064) cut to 1 layer, the state made once on the card and
+   copied: the loss within 1e-5 relative, the global gradient norm within
+   1e-4, every gradient leaf's error RMS within 1e-4 of its RMS and its
+   largest error within 1e-2 (the tied embedding's gradient sits in a
+   few frequent tokens' rows; ``TRAIN_GRAD_MAX_TOL``), and the parameters
+   after the step (where |g| exceeds a tenth of its leaf's RMS) within 1e-3
+   of the step's rate.  (b) ``python -m repro_torch.launch.train``'s
+   ``run`` at full width in the published dtypes (bfloat16 activations,
+   float32 weights and moments) on ``TokenPipeline`` data: qwen2-7b cut to
+   4 layers (1.48e9 parameters), remat as configured, batch 8, seq 1024,
+   two microbatches, 10 steps at peak rate 3e-4 (the CLI's default 3e-3
+   is the smoke models'; see ``TRAIN_RUNS``); mamba2-130m whole at
+   ``examples/train_lm.py``'s settings (batch 16, seq 128, two
+   microbatches), 20 steps: step ms (the median from the third step),
+   tokens/s, peak device bytes above what the card held, the losses (the
+   mean of the last three steps below the first three's), and one more
+   step traced (device-busy share, top kernels); then qwen2-7b for 3 steps
+   without remat, whose peak must exceed the remat run's.  (c) mamba2-130m
+   through the CLI (batch 4, seq 64, one microbatch) with ``--ckpt-dir``
+   in a temporary directory, a SIGTERM in step 6 (``RunGuard``'s path:
+   checkpoint, stop), ``--resume`` to step 12: it prints ``resumed from
+   step 6`` and its losses are within 1e-3 relative of an uninterrupted
+   run's (no deterministic algorithms are asked for: cuBLAS and the
+   embedding's backward need not repeat their sums; the card's runs read
+   bit-identical all the same).  Each row of the
+   ``kernels`` line gains its ``phase15_launches``, all 0.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -1720,6 +1755,9 @@ def phase8_ladder(full: dict):
 # the fault drill of phase 8 (c) and phase 10 (c): 1,024 requests, 5% of
 # them poisoned, shard 7 down for search calls [1, 6), one straggler
 DRILL_REQUESTS = 1024
+# phase 8 (d): the serving loop's requests, the first of phase 3's queries
+# (10,000 until phase 15 came: five loop runs of 10,000 took 66 s)
+LOOP_REQUESTS = 5000
 DRILL_PLAN = dict(shard_down={7: (1, 6)}, straggle={2: 0.01})
 DRILL_LOOP = dict(k=10, query_chunk=64, straggler_chunk=8, max_queue=1024, probe_every=1)
 
@@ -1786,7 +1824,9 @@ def phase_loop(full: dict, sharded: dict, q_np, dev) -> dict:
 
     # (d) the loop on the single-card index, the same requests a chunk at a
     # time: two-phase, single-phase, and two-phase with a shorter phase-1
-    # cap, so that some rows drain in phase 1 and the rest rerun in phase 2
+    # cap, so that some rows drain in phase 1 and the rest rerun in phase 2;
+    # the first LOOP_REQUESTS queries
+    q_np, truth = q_np[:LOOP_REQUESTS], truth[:LOOP_REQUESTS]
     chunk = 256
     nbatch = -(-q_np.shape[0] // chunk)
     kw = dict(k=10, query_chunk=chunk, straggler_chunk=32, max_queue=4 * chunk, ladder=ladder)
@@ -2936,7 +2976,7 @@ def phase_roofline(full: dict, kstats: dict, dist_kernels: dict, x_np, q_np, see
 LM_CUT_LAYERS = 2
 LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_NEW = 2, 16, 4
 LM_BATCH, LM_PROMPT, LM_NEW, LM_BATCHES = 8, 64, 32, 3
-LM_TRACE_NEW = 8     # tokens of the traced generate (torch.profiler)
+LM_TRACE_NEW = 4     # tokens of the traced generate (torch.profiler; 8 before phase 15)
 # (architecture, layers kept: None = all); llama3-405b, grok-1-314b and
 # internlm2-20b do not fit one card in float32, qwen3-14b is left out for time:
 # those four run at smoke width only (the CPU tests and tests/test_torch_cuda.py)
@@ -2984,22 +3024,22 @@ FAMILY_LONG_PROMPT = 4096
 
 @contextlib.contextmanager
 def _arch_cut(n_layers: int | None, **fields):
-    """Within it, ``Server`` builds each architecture's models with
-    ``n_layers`` layers (None: all) and ``fields`` replaced."""
+    """Within it, ``Server`` and the train CLI build each architecture's
+    models with ``n_layers`` layers (None: all) and ``fields`` replaced."""
     from repro_torch.configs import registry
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
 
     def cut(arch_id):
         arch = registry.get_config(arch_id)
         keep = dict(fields, n_layers=n_layers or arch.model.n_layers)
         return dataclasses.replace(arch, model=dataclasses.replace(arch.model, **keep))
 
-    orig = serve.get_config
-    serve.get_config = cut
+    origs = serve.get_config, train.get_config
+    serve.get_config = train.get_config = cut
     try:
         yield
     finally:
-        serve.get_config = orig
+        serve.get_config, train.get_config = origs
 
 
 def _dropless(cfg):
@@ -3433,6 +3473,324 @@ def phase_families(seed: int, rag_state: dict) -> dict:
     return out
 
 
+# phase 15: LM training.  (a) card against CPU in float32 activations (TF32
+# off) at full width: (architecture, layers kept: None = all); one train
+# step of batch 4, seq 64 in two microbatches
+TRAIN_PARITY = (("mamba2-130m", None), ("qwen2-7b", 1))
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ, TRAIN_PARITY_MICRO = 4, 64, 2
+# the loss and the global gradient norm, relative; every gradient leaf's
+# error RMS and its largest error over the leaf's RMS; the parameters after
+# the step where |g| exceeds TRAIN_PARAM_MASK of its leaf's RMS (100 times
+# a 1e-3 gradient tolerance: AdamW's first step is about sign(g) lr, and the
+# 1e-8 eps moves it where |g| is small), within TRAIN_PARAM_LR of the step's
+# rate (the CPU tests' rule, tests/test_torch_train.py).  The
+# largest error's bound is 1e-2, not 1e-3: the tied embedding table's
+# gradient sits in the Zipf data's frequent tokens' rows, its largest
+# entries 229-640 times its RMS, and float32 sums in another order there
+# read 1.5e-3-3.0e-3 of the RMS on the H100 (1.3e-5 of the largest entry); every other
+# leaf read <= 3.3e-4, every error RMS <= 1.1e-5 (PERF.md section 6)
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL, TRAIN_PARAM_MASK, TRAIN_PARAM_LR = 1e-5, 1e-4, 0.1, 1e-3
+TRAIN_GRAD_RMS_TOL, TRAIN_GRAD_MAX_TOL = 1e-4, 1e-2
+# (b) full width, bfloat16 activations as published, float32 weights and
+# moments: (architecture, layers kept, batch, seq, microbatches, steps, peak
+# rate); qwen2-7b at its train_4k microbatches and 3e-4, the peak rate of
+# 7B-class models (the CLI's default 3e-3 is the smoke models': at width
+# 3584 AdamW's first steps move each activation by about its own size, and
+# a 10-step run at 3e-3 diverged on the H100, 12.7 -> 32.8); mamba2-130m at
+# examples/train_lm.py's settings; qwen2-7b again without remat
+TRAIN_RUNS = (("qwen2-7b", 4, 8, 1024, 2, 10, 3e-4), ("mamba2-130m", None, 16, 128, 2, 20, 3e-3))
+TRAIN_NO_REMAT_STEPS = 3
+# (c) mamba2-130m stopped by RunGuard's flag after step TRAIN_STOP, resumed
+# to TRAIN_RESTART_STEPS; its losses against an uninterrupted run's
+# (relative; cuBLAS and the embedding's backward are not deterministic)
+TRAIN_STOP, TRAIN_RESTART_STEPS, TRAIN_RESTART_RTOL = 6, 12, 1e-3
+
+
+def _train_argv(arch_id: str, batch: int, seq: int, micro: int, steps: int, seed: int,
+                *extra) -> list:
+    return ["--arch", arch_id, "--batch", str(batch), "--seq", str(seq), "--micro", str(micro),
+            "--steps", str(steps), "--seed", str(seed), "--device", "cuda", *extra]
+
+
+@contextlib.contextmanager
+def _grads_seen():
+    """Within it, every ``adamw.accumulate_grads`` call's gradients are kept
+    in the yielded list (the train step reads the function from its module
+    at each call)."""
+    from repro_torch.optim import adamw
+
+    seen, orig = [], adamw.accumulate_grads
+
+    def spy(*a, **kw):
+        out = orig(*a, **kw)
+        seen.append(out[1])
+        return out
+
+    adamw.accumulate_grads = spy
+    try:
+        yield seen
+    finally:
+        adamw.accumulate_grads = orig
+
+
+def _train_parity(arch_id: str, n_layers, seed: int) -> dict:
+    """(a): one ``make_train_step`` (``TRAIN_PARITY_MICRO`` microbatches)
+    of ``arch_id`` at full width, depth ``n_layers``, in float32
+    activations, on the card and on the CPU from the same state (made once
+    on the card and copied) and batch: the loss, the global gradient norm,
+    every gradient leaf (its error's RMS and its largest error) and the
+    parameters after the step within the ``TRAIN_*`` bounds."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten, tree_map
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    arch = registry.get_config(arch_id)
+    cfg = dataclasses.replace(arch.model, n_layers=n_layers or arch.model.n_layers)
+    if hasattr(cfg, "act_dtype"):
+        cfg = dataclasses.replace(cfg, act_dtype=torch.float32)
+    model = model_zoo.build(cfg, arch.family)
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    t0 = time.perf_counter()
+    card = steps.init_train_state(model, opt_cfg, torch.Generator(device=cuda).manual_seed(seed),
+                                  cuda)
+    host = tree_map(lambda t: t.to(cpu, copy=True), card)
+    out = dict(layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+               params=sum(t.numel() for t in tree_flatten(card.params)[1]),
+               batch=TRAIN_PARITY_BATCH, seq=TRAIN_PARITY_SEQ, micro=TRAIN_PARITY_MICRO,
+               init_s=time.perf_counter() - t0)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=TRAIN_PARITY_SEQ,
+                                             global_batch=TRAIN_PARITY_BATCH, seed=seed))
+    step = steps.make_train_step(model, opt_cfg, TRAIN_PARITY_MICRO)
+    runs = {}
+    for name, dev, state in (("cpu", cpu, host), ("card", cuda, card)):
+        batch = train.make_batch_fn(model, arch.family, pipe, TRAIN_PARITY_SEQ, dev)(0)
+        t1 = time.perf_counter()
+        with _grads_seen() as seen:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        runs[name] = dict(state=state, grads=seen[0], s=time.perf_counter() - t1,
+                          metrics={k: float(v) for k, v in metrics.items()})
+        out[f"{name}_step_s"] = runs[name]["s"]
+        out[f"{name}_metrics"] = runs[name]["metrics"]
+    del card, host
+    want, got = runs["cpu"], runs["card"]
+    loss_rel = abs(got["metrics"]["loss"] - want["metrics"]["loss"]) / abs(want["metrics"]["loss"])
+    gnorm_rel = (abs(got["metrics"]["grad_norm"] - want["metrics"]["grad_norm"])
+                 / want["metrics"]["grad_norm"])
+    lr = want["metrics"]["lr"]
+    names, gw = tree_flatten(want["grads"])
+    gg = tree_flatten(got["grads"])[1]
+    pw, pg = tree_flatten(want["state"].params)[1], tree_flatten(got["state"].params)[1]
+    total = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in gw)
+                             / sum(g.numel() for g in gw)))
+    grad_worst, param_worst, noise, compared, leaves = 0.0, 0.0, [], 0, []
+    for name, a, b, p_cpu, p_card in zip(names, gw, gg, pw, pg):
+        a, p_cpu = a.to(cuda), p_cpu.to(cuda)     # compared on the card: faster
+        rms = float(a.double().pow(2).mean().sqrt())
+        if rms < 1e-6 * total:      # zero in exact arithmetic: rounding noise
+            check(max(float(a.abs().max()), float(b.abs().max())) < 1e-6 * total,
+                  f"phase15 parity {arch_id}: {name}'s gradient is not noise")
+            noise.append(name)
+            continue
+        err = float((b - a).abs().max())
+        err_rms = float((b - a).double().pow(2).mean().sqrt())
+        leaves.append(dict(name=name, max_err_over_rms=err / rms, err_rms_over_rms=err_rms / rms,
+                           amax_over_rms=float(a.abs().max()) / rms))
+        check(err <= TRAIN_GRAD_MAX_TOL * rms and err_rms <= TRAIN_GRAD_RMS_TOL * rms,
+              f"phase15 parity {arch_id}: gradient {name} off the CPU's by {err} (RMS "
+              f"{err_rms}) against its RMS {rms}")
+        grad_worst = max(grad_worst, err / rms)
+        sure = a.abs() > TRAIN_PARAM_MASK * rms
+        compared += int(sure.sum())
+        if bool(sure.any()):
+            perr = float((p_card[sure] - p_cpu[sure]).abs().max())
+            check(perr <= TRAIN_PARAM_LR * lr, f"phase15 parity {arch_id}: parameter {name} "
+                  f"after the step off the CPU's by {perr} > {TRAIN_PARAM_LR} x lr {lr}")
+            param_worst = max(param_worst, perr / lr)
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"phase15 parity {arch_id}: loss off the CPU's by {loss_rel} relative")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL,
+          f"phase15 parity {arch_id}: gradient norm off the CPU's by {gnorm_rel} relative")
+    out.update(loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
+               grad_max_err_over_rms=grad_worst,
+               grad_err_rms_over_rms=max(r["err_rms_over_rms"] for r in leaves),
+               param_max_err_over_lr=param_worst,
+               params_compared=compared, noise_leaves=noise,
+               worst_leaves=sorted(leaves, key=lambda r: -r["max_err_over_rms"])[:6],
+               s=time.perf_counter() - t0)
+    del runs, want, got, gw, gg, pw, pg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_run(arch_id: str, n_layers, batch: int, seq: int, micro: int, n_steps: int,
+               lr: float, seed: int, *, remat: bool | None = None, trace: bool = True) -> dict:
+    """(b): ``python -m repro_torch.launch.train``'s ``run`` for ``arch_id``
+    at full width, depth ``n_layers`` (None: all), its published dtypes
+    (``remat`` replaced where given), at peak rate ``lr`` after the CLI's
+    warmup (``min(50, n_steps)`` steps), on ``TokenPipeline`` data: step ms
+    (the median from the third step on), tokens/s, peak device bytes above
+    what the card held, the losses, and the "loss falls" rule (the mean of
+    the last three steps below the first three's); then one more step
+    traced (device-busy share, top kernels)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    from repro_torch.trace_build import _region
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    fields = {} if remat is None else {"remat": remat}
+    t0 = time.perf_counter()
+    with _arch_cut(n_layers, **fields):
+        rec = train.run(_train_argv(arch_id, batch, seq, micro, n_steps, seed,
+                                    "--log-every", "1", "--lr", str(lr)))
+        arch = train.get_config(arch_id)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    losses, step_s = rec["losses"], rec["step_s"]
+    med = float(np.median(step_s[2:]))
+    params = tree_leaves(rec["state"].params)
+    out = dict(arch=arch_id, layers=arch.model.n_layers, d_model=arch.model.d_model,
+               vocab=arch.model.vocab, remat=arch.model.remat,
+               act_dtype=str(getattr(arch.model, "act_dtype", torch.float32)),
+               params=sum(t.numel() for t in params), batch=batch, seq=seq, micro=micro,
+               steps=n_steps, lr=lr, losses=losses, step_ms=[1e3 * t for t in step_s],
+               step_ms_median=1e3 * med, tokens_per_s=batch * seq / med,
+               peak_device_bytes=torch.cuda.max_memory_allocated(),
+               held_before=held, wall_s=wall)
+    out["peak_above_held"] = out["peak_device_bytes"] - held
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    out.update(loss_first3=first, loss_last3=last)
+    check(len(losses) == n_steps and all(np.isfinite(losses)),
+          f"phase15 {arch_id}: losses {losses}")
+    if n_steps >= 6:
+        check(last < first, f"phase15 {arch_id}: the loss did not fall ({first} -> {last})")
+    if trace:
+        model = steps.build_model(arch)
+        opt_cfg = adamw.AdamWConfig(lr=lr, warmup_steps=min(50, n_steps), total_steps=n_steps)
+        step = steps.make_train_step(model, opt_cfg, micro)
+        pipe = TokenPipeline(TokenPipelineConfig(vocab=arch.model.vocab, seq_len=seq,
+                                                 global_batch=batch, seed=seed))
+        tb = train.make_batch_fn(model, arch.family, pipe, seq, torch.device("cuda"))(n_steps)
+        state = rec["state"]
+        out["trace"] = _region("train step", lambda: step(state, tb))
+        del state, tb
+    del rec, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_restart(seed: int) -> dict:
+    """(c): mamba2-130m through the CLI with ``--ckpt-dir`` in a temporary
+    directory, a SIGTERM raised in step ``TRAIN_STOP - 1`` (``RunGuard``'s
+    path: checkpoint at step ``TRAIN_STOP``, stop), then ``--resume`` to
+    ``TRAIN_RESTART_STEPS``: it must print ``resumed from step
+    TRAIN_STOP``, and its losses must be within ``TRAIN_RESTART_RTOL`` of an
+    uninterrupted run's."""
+    import io
+    import signal
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import train
+
+    argv = _train_argv("mamba2-130m", 4, 64, 1, TRAIN_RESTART_STEPS, seed, "--log-every", "100",
+                       "--ckpt-every", "100")
+    t0 = time.perf_counter()
+    whole = train.run(argv)["losses"]
+    make = train.make_batch_fn
+
+    def make_stopping(*a, **kw):
+        get = make(*a, **kw)
+
+        def stopping(step):
+            if step == TRAIN_STOP - 1:
+                signal.raise_signal(signal.SIGTERM)
+            return get(step)
+
+        return stopping
+
+    with tempfile.TemporaryDirectory() as d:
+        train.make_batch_fn = make_stopping
+        try:
+            cut = train.run(argv + ["--ckpt-dir", d])
+        finally:
+            train.make_batch_fn = make
+        check(cut["stopped"] and len(cut["losses"]) == TRAIN_STOP,
+              f"phase15 restart: the guard stopped after {len(cut['losses'])} steps")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rest = train.run(argv + ["--ckpt-dir", d, "--resume"])
+        log(buf.getvalue().rstrip())
+    check(f"resumed from step {TRAIN_STOP}" in buf.getvalue(),
+          "phase15 restart: no 'resumed from step' line")
+    losses = cut["losses"] + rest["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, whole))
+    check(len(losses) == len(whole) and rel <= TRAIN_RESTART_RTOL,
+          f"phase15 restart: losses {losses} off the uninterrupted run's {whole} by {rel}")
+    del cut, rest
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stop=TRAIN_STOP, steps=TRAIN_RESTART_STEPS, losses=losses, uninterrupted=whole,
+                max_rel_err=rel, deterministic=False, s=time.perf_counter() - t0)
+
+
+def phase_train(seed: int) -> dict:
+    """Phase 15: LM training (``launch/train.py``, ``launch/steps.py``,
+    ``optim/adamw.py``, ``checkpoint/``).  (a) ``_train_parity`` for each of
+    ``TRAIN_PARITY``; (b) ``_train_run`` for each of ``TRAIN_RUNS``, and
+    qwen2-7b again without remat for ``TRAIN_NO_REMAT_STEPS`` steps, whose
+    peak must exceed the remat run's; (c) ``_train_restart``.  The launch
+    counters are set to 0 before each path and read after it: training
+    launches none of the port's kernels."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "parity": {}, "runs": {}}
+
+    def path(name: str, fn):
+        kernels.reset_launch_counts()
+        rec = fn()
+        launches = _path_launches(f"phase15 {name}", ())
+        check(not any(launches.values()), f"phase15 {name}: training launched {launches}")
+        out["launches"][name] = launches
+        log(f"phase15 {name}", json.dumps(rec))
+        return rec
+
+    for arch_id, n_layers in TRAIN_PARITY:
+        out["parity"][arch_id] = path(f"parity_{arch_id}",
+                                      lambda: _train_parity(arch_id, n_layers, seed))
+    for arch_id, n_layers, batch, seq, micro, n_steps, lr in TRAIN_RUNS:
+        out["runs"][arch_id] = path(arch_id, lambda: _train_run(
+            arch_id, n_layers, batch, seq, micro, n_steps, lr, seed))
+        if arch_id == "qwen2-7b":
+            out["runs"]["qwen2-7b_no_remat"] = rec = path("qwen2-7b_no_remat", lambda: _train_run(
+                arch_id, n_layers, batch, seq, micro, TRAIN_NO_REMAT_STEPS, lr, seed,
+                remat=False, trace=False))
+            with_remat = out["runs"]["qwen2-7b"]["peak_above_held"]
+            check(rec["peak_above_held"] > with_remat,
+                  f"phase15: qwen2-7b's peak without remat {rec['peak_above_held']} does not "
+                  f"exceed the remat run's {with_remat}")
+    out["restart"] = path("restart", lambda: _train_restart(seed))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def _sites(replaces: tuple) -> str:
     """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
     return " and :".join([replaces[0]] + [r.rpartition(":")[2] for r in replaces[1:]])
@@ -3442,9 +3800,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--n", type=int, default=1_000_000)
-    ap.add_argument("--n-small", type=int, default=65_536)
+    ap.add_argument("--n-small", type=int, default=32_768,
+                    help="points of phase 2's card-against-CPU build, phase 7(d)'s leaf "
+                         "methods and phase 8(b) (65,536 until phase 15 came)")
     ap.add_argument("--queries", type=int, default=10_000)
-    ap.add_argument("--n-cpu", type=int, default=16_384,
+    ap.add_argument("--n-cpu", type=int, default=8_192,
                     help="points of phase 7's leaf-method builds on the card and the CPU")
     args = ap.parse_args()
 
@@ -3570,6 +3930,14 @@ def main() -> int:
     lm = phase_lm(args.seed)
     log("phase14 s", round(time.perf_counter() - t0, 3))
 
+    # phase 15 after phase 14's models are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase15 held before", torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    trained = phase_train(args.seed)
+    log("phase15 s", round(time.perf_counter() - t0, 3))
+
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
     # launches are read from
@@ -3643,6 +4011,8 @@ def main() -> int:
         row.update(phase13_launches=roof["launches"].get(counter, 0))
         # phase 14: the LM runs (none) and the RAG example's two paths
         row.update(phase14_launches={k: v[counter] for k, v in lm["launches"].items()})
+        # phase 15: LM training (none)
+        row.update(phase15_launches={k: v[counter] for k, v in trained["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

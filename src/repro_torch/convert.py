@@ -2,9 +2,10 @@
 
 What crosses between the packages is the dataset, the RBC leaves, the
 hyperplanes or sketches, the HashPrune reservoir, the built graph, a
-serving packing, and an LM's parameters.  These functions take
-that state as numpy arrays (never objects of the JAX package) and return
-the port's counterparts on ``device`` (default: the card).  Leaves and
+serving packing, and an LM's parameters and train state.  These functions
+take that state as numpy arrays (never objects of the JAX package) and
+return the port's counterparts on ``device`` (default: the card);
+``lm_to_arrays`` carries an LM tree back.  Leaves and
 hyperplanes go straight to ``pipnn.build(leaves=..., hyperplanes=...)``.
 """
 from __future__ import annotations
@@ -16,6 +17,8 @@ from repro_torch.core.hashprune import Reservoir
 from repro_torch.core.pipnn import PiPNNIndex, PiPNNParams
 from repro_torch.core.serving import ServingIndex
 from repro_torch.device import resolve_device
+from repro_torch.launch.steps import TrainState
+from repro_torch.optim.adamw import AdamWState
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -57,6 +60,44 @@ def lm_from_arrays(params: dict, *, device=None) -> dict:
 
     return {k: [tree(v, i) for i in range(n_layers(v))] if k in STACKED else tree(v)
             for k, v in params.items()}
+
+
+def lm_to_arrays(tree: dict) -> dict:
+    """The inverse of ``lm_from_arrays`` for a tree of the port's LM
+    tensors (parameters, or their gradients or moments): each list of
+    layers stacked on a leading [L, ...] axis as the reference keeps it,
+    numpy on the host; bfloat16 widened to float32 (exactly: numpy has no
+    bfloat16)."""
+
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def tree_np(node):
+        if isinstance(node, dict):
+            return {k: tree_np(v) for k, v in node.items()}
+        return leaf(node)
+
+    def stack(layers):
+        if isinstance(layers[0], dict):
+            return {k: stack([lay[k] for lay in layers]) for k in layers[0]}
+        return np.stack([leaf(t) for t in layers])
+
+    return {k: stack(v) if k in STACKED else tree_np(v) for k, v in tree.items()}
+
+
+def train_state_from_arrays(params: dict, opt, *, device=None):
+    """The port's ``launch.steps.TrainState`` from the reference's, given
+    as numpy arrays: ``params`` through ``lm_from_arrays``, ``opt`` (its
+    AdamW state: ``step``, ``m``, ``v``, in that order) with the moments
+    split the same way and the step an int32 scalar."""
+    dev = resolve_device(device)
+    step, m, v = opt
+    return TrainState(params=lm_from_arrays(params, device=dev),
+                      opt=AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                                       device=dev),
+                                     m=lm_from_arrays(m, device=dev),
+                                     v=lm_from_arrays(v, device=dev)))
 
 
 def index_from_arrays(graph, dists, start: int, *, metric: str = "l2",

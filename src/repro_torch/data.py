@@ -1,7 +1,13 @@
-"""Synthetic vectors for PiPNN (copies of ``make_vectors`` and
-``make_queries`` from ``repro/data/pipeline.py``), plus the SIFT-like
-integer transform and dyadic hyperplanes used for exact cross-device
-checks.
+"""Synthetic data (copies from ``repro/data/pipeline.py``): the LM token
+pipeline (``TokenPipeline``) and the vectors for PiPNN (``make_vectors``,
+``make_queries``), plus the SIFT-like integer transform and dyadic
+hyperplanes used for exact cross-device checks.
+
+Token batches are counter-based: batch ``i`` is a pure function of (seed,
+i, shard), so a restart resumes from the step counter alone and each
+data-parallel shard makes only its rows.  They follow a Zipfian unigram
+distribution with a planted "grammar" (every 4th token repeats the token
+two before it), so an LM's loss falls in a few steps.
 
 With ``sift_like`` data (integers in [0, 255]) at d = 128, every norm, dot
 product and squared distance is an integer below 2^24, so it is exact in
@@ -14,6 +20,46 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenPipelineConfig:
+    vocab: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    zipf_alpha: float = 1.1
+
+
+def _zipf_probs(vocab: int, alpha: float) -> np.ndarray:
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    p = ranks ** -alpha
+    return (p / p.sum()).astype(np.float64)
+
+
+class TokenPipeline:
+    """``batch(step) -> {tokens, labels}`` (int32 [B / n_shards, T] numpy);
+    pure in (seed, step, shard)."""
+
+    def __init__(self, cfg: TokenPipelineConfig, shard: tuple[int, int] = (0, 1)):
+        self.cfg = cfg
+        self.shard_idx, self.n_shards = shard
+        if cfg.global_batch % self.n_shards:
+            raise ValueError(f"global batch {cfg.global_batch} % shards {self.n_shards}")
+        self.local_batch = cfg.global_batch // self.n_shards
+        self._probs = _zipf_probs(cfg.vocab, cfg.zipf_alpha)
+        self._cum = np.cumsum(self._probs)
+
+    def batch(self, step: int) -> dict[str, np.ndarray]:
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence(entropy=cfg.seed, spawn_key=(step, self.shard_idx)))
+        u = rng.random((self.local_batch, cfg.seq_len + 1))
+        toks = np.searchsorted(self._cum, u).astype(np.int32)
+        toks = np.minimum(toks, cfg.vocab - 1)
+        # plant learnable structure: every 4th token repeats (t-2)'s token
+        toks[:, 4::4] = toks[:, 2:-2:4]
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:].copy()}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -18,15 +18,15 @@ rank raises ``AllShardsDown`` together, before any collective.  A rank
 that dies is not survived: the shard failures here are simulated, as in
 the reference.
 
-The reference's ``resume_or_init`` restores a checkpoint; the port has no
-checkpoint module yet, so it is not here.
+``resume_or_init`` restores a trainer's newest committed checkpoint
+(``checkpoint.Checkpointer``) or initializes it fresh.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import signal
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
@@ -102,3 +102,15 @@ class RollingPercentile:
         if not self._values:
             return 0.0
         return float(np.percentile(np.fromiter(self._values, dtype=float), pct))
+
+
+def resume_or_init(checkpointer, init_fn: Callable[[], Any], like_fn: Callable[[], Any],
+                   device=None) -> tuple[Any, int, dict]:
+    """Restore the newest committed checkpoint into ``like_fn()``'s
+    structure (on ``device``, default each like leaf's), or ``init_fn()``
+    when there is none.  Returns (state, start_step, extra)."""
+    latest = checkpointer.latest_step()
+    if latest is None:
+        return init_fn(), 0, {}
+    state, extra = checkpointer.restore(latest, like_fn(), device=device)
+    return state, latest, extra

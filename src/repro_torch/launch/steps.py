@@ -1,18 +1,52 @@
-"""The serving part of ``repro/launch/steps.py``: the model of an
-architecture, which ``launch/serve.py::Server`` serves.  The reference's
-prefill and decode step builders wrap ``Model.prefill`` and
-``Model.decode_step`` to be jitted; eager PyTorch calls them directly.
+"""Step builders (counterpart of ``repro/launch/steps.py``): the model of
+an architecture, which ``launch/serve.py::Server`` serves and
+``launch/train.py`` trains, and the train step.
 
-The reference's train step, its cell programs (``cell_program``,
-``CellProgram``, ``input_specs``) and its sharding helpers are training
-or JAX lowering machinery and are not here (ROADMAP.md section 1).
+The reference's prefill and decode step builders wrap ``Model.prefill``
+and ``Model.decode_step`` to be jitted; eager PyTorch calls them directly.
+Its GSPMD machinery (the mesh arguments of ``make_train_step``,
+``microbatch_constraint``, ``abstract_train_state``,
+``train_state_shardings``, the cell programs and the sharding helpers)
+has no counterpart on one card (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
+from typing import Any, Callable, NamedTuple
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model_zoo
+from repro_torch.optim import adamw
 
 
 def build_model(arch: ArchConfig, *, smoke: bool = False) -> model_zoo.Model:
     """The full-size model of ``arch``, or its smoke model."""
     return model_zoo.build(arch.smoke_model if smoke else arch.model, arch.family)
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+
+
+def init_train_state(model: model_zoo.Model, opt_cfg: adamw.AdamWConfig, generator,
+                     device=None) -> TrainState:
+    """Parameters made on ``device`` from ``generator`` (``Model.init``)
+    and AdamW's zero state beside them."""
+    params = model.init(generator, device)
+    return TrainState(params=params, opt=adamw.init(opt_cfg, params))
+
+
+def make_train_step(model: model_zoo.Model, opt_cfg: adamw.AdamWConfig,
+                    n_micro: int = 1) -> Callable:
+    """``train_step(state, batch) -> (state, metrics {"grad_norm", "lr",
+    "loss"})``: the mean loss and grads over ``n_micro`` microbatches, then
+    one AdamW update, which writes the state's tensors in place (the
+    reference donates its state)."""
+
+    def train_step(state: TrainState, batch: dict):
+        loss, grads = adamw.accumulate_grads(model.loss_fn, state.params, batch, n_micro)
+        params, opt, metrics = adamw.update(opt_cfg, grads, state.opt, state.params)
+        metrics["loss"] = loss
+        return TrainState(params, opt), metrics
+
+    return train_step

@@ -7,9 +7,11 @@ LayerNorm (not RMSNorm), non-gated GELU MLPs, attention with biases,
 sinusoidal absolute positions (no RoPE), a causal decoder with
 cross-attention into the encoder memory.  The decoder's activations are
 float32 (the reference casts nothing after the embedding); the encoder
-runs in the frames' dtype (bfloat16 under ``Server``).  The reference's
-loss and ``remat`` belong to training and are not here, nor its
-``attn_impl`` (every config runs ``layers._sdpa_flash``).
+runs in the frames' dtype (bfloat16 under ``Server`` and in training).
+``encode``, ``decode_train`` and ``loss_fn`` record autograd graphs, each
+layer of both stacks checkpointed with ``remat``; ``prefill`` and
+``decode_step`` build none.  The reference's ``attn_impl`` is not here
+(every config runs ``layers._sdpa_flash``).
 """
 from __future__ import annotations
 
@@ -37,8 +39,8 @@ class EncDecConfig:
     q_chunk: int = 512
     k_chunk: int = 1024
     param_dtype: Any = torch.float32
-    remat: bool = True         # training only: activation checkpointing
-    z_loss: float = 1e-4       # training only: the loss's z-loss
+    remat: bool = True         # activation checkpointing of each layer in training
+    z_loss: float = 1e-4       # the loss's z-loss
 
     @property
     def hd(self) -> int:
@@ -104,7 +106,6 @@ def init(cfg: EncDecConfig, generator: torch.Generator, *, device=None) -> Param
         }
 
 
-@torch.no_grad()
 def encode(params: Params, cfg: EncDecConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames: [B, S, D] precomputed frame embeddings (the frontend stub);
     returns the memory [B, S, D] in the frames' dtype."""
@@ -112,9 +113,13 @@ def encode(params: Params, cfg: EncDecConfig, frames: torch.Tensor) -> torch.Ten
     x = frames + sinusoidal(s, d, frames.device).to(frames.dtype)
     pos = L.token_positions(b, s, frames.device)
     acfg = cfg.attn_config(False)
-    for blk in params["enc_blocks"]:
+
+    def layer(x, blk):
         x = x + L.attention(blk["attn"], acfg, L.layernorm(blk["ln1"], x, cfg.norm_eps), pos)
-        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln2"], x, cfg.norm_eps))
+        return x + L.mlp(blk["mlp"], L.layernorm(blk["ln2"], x, cfg.norm_eps))
+
+    for blk in params["enc_blocks"]:
+        x = L.remat_call(cfg.remat, layer, x, blk)
     return L.layernorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -125,7 +130,6 @@ def _cross_kv(blk: Params, cfg: EncDecConfig, memory: torch.Tensor):
     return k, v
 
 
-@torch.no_grad()
 def decode_train(params: Params, cfg: EncDecConfig, tokens: torch.Tensor,
                  memory: torch.Tensor) -> torch.Tensor:
     """The decoder over whole sequences (teacher forcing): hidden states
@@ -135,12 +139,25 @@ def decode_train(params: Params, cfg: EncDecConfig, tokens: torch.Tensor,
     x = x + sinusoidal(t, cfg.d_model, x.device).to(x.dtype)
     pos = L.token_positions(b, t, x.device)
     self_cfg, cross_cfg = cfg.attn_config(True), cfg.attn_config(False)
-    for blk in params["dec_blocks"]:
+
+    def layer(x, blk, memory):
         x = x + L.attention(blk["attn"], self_cfg, L.layernorm(blk["ln1"], x, cfg.norm_eps), pos)
         x = x + L.attention(blk["cross"], cross_cfg, L.layernorm(blk["ln2"], x, cfg.norm_eps),
                             pos, kv=_cross_kv(blk, cfg, memory))
-        x = x + L.mlp(blk["mlp"], L.layernorm(blk["ln3"], x, cfg.norm_eps))
+        return x + L.mlp(blk["mlp"], L.layernorm(blk["ln3"], x, cfg.norm_eps))
+
+    for blk in params["dec_blocks"]:
+        x = L.remat_call(cfg.remat, layer, x, blk, memory)
     return L.layernorm(params["dec_norm"], x, cfg.norm_eps)
+
+
+def loss_fn(params: Params, cfg: EncDecConfig, batch: dict) -> torch.Tensor:
+    """LM cross entropy (with z-loss) of the decoder over ``batch``
+    {frames [B, S, D], tokens [B, T], labels [B, T]}."""
+    memory = encode(params, cfg, batch["frames"])
+    h = decode_train(params, cfg, batch["tokens"], memory)
+    logits = L.unembed(params["embed"], h)
+    return L.cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
 
 
 @torch.no_grad()

@@ -10,8 +10,11 @@ blocks to [n_apps, attn_every] and scans; the port loops.
 
 Decode state: each Mamba2 layer's conv window and SSM state, and one KV
 cache a use of the shared block ([n_apps, B, S, KV, hd], bfloat16 by
-default), written in place.  Activations are float32.  The reference's
-loss and ``remat`` belong to training and are not here.
+default), written in place.  Activations are float32.  ``forward`` and
+``loss_fn`` record autograd graphs, each Mamba2 layer checkpointed with
+``remat`` (the shared block is not, as in the reference); the shared
+block's gradient sums over its uses.  ``prefill`` and ``decode_step``
+build no graph.
 """
 from __future__ import annotations
 
@@ -52,8 +55,8 @@ class HybridConfig:
     norm_eps: float = 1e-5
     q_chunk: int = 512
     param_dtype: Any = torch.float32
-    remat: bool = True         # training only: activation checkpointing
-    z_loss: float = 1e-4       # training only: the loss's z-loss
+    remat: bool = True         # activation checkpointing of each Mamba2 layer in training
+    z_loss: float = 1e-4       # the loss's z-loss
 
     @property
     def hd(self) -> int:
@@ -113,18 +116,27 @@ def _segments(params: Params, cfg: HybridConfig):
     return [blocks[a * per:(a + 1) * per] for a in range(cfg.n_apps)]
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: HybridConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Hidden states [B, T, D] after the final norm."""
     x = L.embed(params["embed"], tokens)
     pos = L.token_positions(*tokens.shape, x.device)
     mcfg, acfg, sh = cfg.mamba_config(), cfg.attn_config(), params["shared"]
+
+    def mamba_layer(x, blk):
+        return x + mamba2_forward(blk["mamba"], mcfg, L.rmsnorm(blk["ln"], x, cfg.norm_eps))
+
     for seg in _segments(params, cfg):
         for _, blk in seg:
-            x = x + mamba2_forward(blk["mamba"], mcfg, L.rmsnorm(blk["ln"], x, cfg.norm_eps))
+            x = L.remat_call(cfg.remat, mamba_layer, x, blk)
         x = x + L.attention(sh["attn"], acfg, L.rmsnorm(sh["ln1"], x, cfg.norm_eps), pos)
         x = x + L.mlp(sh["mlp"], L.rmsnorm(sh["ln2"], x, cfg.norm_eps))
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def loss_fn(params: Params, cfg: HybridConfig, batch: dict) -> torch.Tensor:
+    """LM cross entropy (with z-loss) of ``batch`` {tokens, labels}."""
+    logits = L.unembed(params["embed"], forward(params, cfg, batch["tokens"]))
+    return L.cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
 
 
 @torch.no_grad()

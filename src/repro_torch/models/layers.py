@@ -21,25 +21,28 @@ GSPMD cell programs: ``_sdpa_flash_sp`` (sequence parallelism) and
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.tree import tree_map  # noqa: F401  (re-exported: L.tree_map)
 
 Params = dict
 
 NEG = -1e30    # the masked logit
 
 
-def tree_map(fn: Callable, tree):
-    """``fn`` applied to every tensor of a parameter tree (dicts and
-    lists), the tree's structure kept."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, while autograd records, under
+    activation checkpointing (``torch.utils.checkpoint``, non-reentrant):
+    the backward runs ``fn`` again instead of keeping its activations, the
+    reference's ``jax.checkpoint``.  Without a graph (serving) it is a plain
+    call."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def normal(shape, scale: float, dtype, generator: torch.Generator, device) -> torch.Tensor:
@@ -363,3 +366,16 @@ def embed(p: Params, tokens: torch.Tensor) -> torch.Tensor:
 def unembed(p: Params, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding: logits = x @ table.T (float32 accumulation)."""
     return torch.einsum("btd,vd->btv", x.float(), p["table"].float())
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor, *,
+                  z_loss: float = 0.0) -> torch.Tensor:
+    """Mean token cross entropy of ``logits`` [..., V] (float32) against
+    integer ``targets`` [...]; with ``z_loss`` > 0 plus ``z_loss`` times
+    the squared log-partition (stabilizes a big vocabulary)."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, targets[..., None].long(), dim=-1)[..., 0]
+    loss = lse - ll
+    if z_loss > 0.0:
+        loss = loss + z_loss * lse ** 2
+    return torch.mean(loss)

@@ -144,7 +144,9 @@ def _ssd_chunked(x, b_, c_, dt, a_log, q: int):
     li = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # [B, nc, Q(i), Q(j), H]
     idx = torch.arange(q, device=x.device)
     mask = idx[:, None] >= idx[None, :]
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(li), 0.0)
+    # the mask goes in before the exp: above the diagonal li > 0 overflows at
+    # chunk 128, and the gradient of where(mask, exp(li), 0) is 0 * inf there
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], li, float("-inf")))
     cb = torch.einsum("bcihn,bcjhn->bcijh", cc, bc)
     att = cb * decay * dtc[:, :, None, :, :]
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", att, xc)

@@ -7,19 +7,25 @@ server and the tests use:
   * ``init(generator, device=None) -> params``
   * ``forward(params, batch) -> hidden [B, T, D]`` after the final norm
     (``encdec``: ``encode`` of the frames, then ``decode_train``)
+  * ``loss_fn(params, batch) -> scalar`` (the train step's loss; ``batch``
+    also holds ``labels`` [B, T])
   * ``prefill(params, batch, max_len) -> (logits [B, V], cache)``
   * ``decode_step(params, token, cache) -> (logits [B, V], cache)``
+  * ``train_batch_spec(b, t) -> {name: (shape, dtype)}``, the train
+    step's batch
 
 ``batch`` holds ``tokens`` [B, T]; for the ``vlm`` family also M-RoPE
 ``positions`` [3, B, T], and for ``encdec`` the encoder's ``frames``
 [B, S, D].  The families: ``dense``, ``moe`` and ``vlm``
 (``transformer``), ``encdec``, ``ssm`` (``ssm_lm``) and ``hybrid``.  The
-reference's loss and its ``*_spec`` functions (abstract inputs for JAX's
-ahead-of-time lowering) belong to training and to JAX and are not here.
+reference's other ``*_spec`` functions (abstract inputs for JAX's
+ahead-of-time lowering of prefill and decode) are not here.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, NamedTuple
+
+import torch
 
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 
@@ -29,8 +35,22 @@ class Model(NamedTuple):
     config: Any
     init: Callable
     forward: Callable
+    loss_fn: Callable
     prefill: Callable
     decode_step: Callable
+    train_batch_spec: Callable
+
+
+def _train_spec(family: str, d_model: int, b: int, t: int) -> dict:
+    """The train batch's leaves as (shape, dtype): int32 tokens and labels
+    [B, T]; the VLM's M-RoPE positions [3, B, T]; the encoder's bfloat16
+    frames [B, T, D]."""
+    spec = {"tokens": ((b, t), torch.int32), "labels": ((b, t), torch.int32)}
+    if family == "vlm":
+        spec["positions"] = ((3, b, t), torch.int32)
+    if family == "encdec":
+        spec = {"frames": ((b, t, d_model), torch.bfloat16), **spec}
+    return spec
 
 
 def build(cfg: Any, family: str) -> Model:
@@ -68,5 +88,11 @@ def build(cfg: Any, family: str) -> Model:
     def decode(params, token, cache):
         return module.decode_step(params, cfg, token, cache)
 
-    return Model(family=family, config=cfg, init=init, forward=forward, prefill=prefill,
-                 decode_step=decode)
+    def loss(params, batch):
+        return module.loss_fn(params, cfg, batch)
+
+    def train_spec(b, t):
+        return _train_spec(family, cfg.d_model, b, t)
+
+    return Model(family=family, config=cfg, init=init, forward=forward, loss_fn=loss,
+                 prefill=prefill, decode_step=decode, train_batch_spec=train_spec)

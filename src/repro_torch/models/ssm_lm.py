@@ -6,8 +6,9 @@ Parameters: ``{"embed": {"table"}, "blocks": [{"ln", "mamba"} a layer],
 axis and scans, the port loops over a list.  Activations are float32 (the
 reference casts nothing after the embedding).  The decode state is O(1) in
 the context: the cache holds each layer's conv window and SSM state, and
-no ``max_len`` bounds it.  The reference's loss and activation
-checkpointing (``remat``) belong to training and are not here.
+no ``max_len`` bounds it.  ``forward`` and ``loss_fn`` record autograd
+graphs, each layer checkpointed with ``remat``; ``prefill`` and
+``decode_step`` build none.
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ class SSMConfig:
     chunk: int = 128
     norm_eps: float = 1e-5
     param_dtype: Any = torch.float32
-    remat: bool = True         # training only: activation checkpointing
-    z_loss: float = 1e-4       # training only: the loss's z-loss
+    remat: bool = True         # activation checkpointing of each layer in training
+    z_loss: float = 1e-4       # the loss's z-loss
 
     def mamba_config(self) -> Mamba2Config:
         return Mamba2Config(d_model=self.d_model, d_state=self.d_state,
@@ -70,14 +71,23 @@ def init(cfg: SSMConfig, generator: torch.Generator, *, device=None) -> Params:
                 "final_norm": L.rmsnorm_init(cfg.d_model, cfg.param_dtype, dev)}
 
 
-@torch.no_grad()
 def forward(params: Params, cfg: SSMConfig, tokens: torch.Tensor) -> torch.Tensor:
     """Hidden states [B, T, D] after the final norm."""
     x = L.embed(params["embed"], tokens)
     mcfg = cfg.mamba_config()
+
+    def layer(x, blk):
+        return x + mamba2_forward(blk["mamba"], mcfg, L.rmsnorm(blk["ln"], x, cfg.norm_eps))
+
     for blk in params["blocks"]:
-        x = x + mamba2_forward(blk["mamba"], mcfg, L.rmsnorm(blk["ln"], x, cfg.norm_eps))
+        x = L.remat_call(cfg.remat, layer, x, blk)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def loss_fn(params: Params, cfg: SSMConfig, batch: dict) -> torch.Tensor:
+    """LM cross entropy (with z-loss) of ``batch`` {tokens, labels}."""
+    logits = L.unembed(params["embed"], forward(params, cfg, batch["tokens"]))
+    return L.cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
 
 
 @torch.no_grad()

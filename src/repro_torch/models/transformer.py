@@ -7,8 +7,10 @@ a layer], "final_norm": {"scale"}}``.  The reference stacks its blocks on a
 leading [L, ...] axis and scans over them; here the blocks are a list and
 the model loops over it.  The KV cache keeps the reference's stacked
 [L, B, S, KV, hd] layout, and ``decode_step`` writes into it in place.
-The reference's activation checkpointing (``remat``) is training and has
-no effect here.
+``forward`` and ``loss_fn`` record autograd graphs; with ``remat`` they
+checkpoint each layer (or each group of ``remat_group`` layers) while
+autograd records, as the reference's ``jax.checkpoint``.  ``prefill`` and
+``decode_step`` build no graph.
 """
 from __future__ import annotations
 
@@ -54,10 +56,10 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     act_dtype: Any = torch.float32   # residual-stream dtype; norms, softmax and
     #                                  the unembedding stay float32
-    remat: bool = True         # training only: activation checkpointing
-    remat_group: int = 0       # training only: checkpoint every g layers
-    z_loss: float = 1e-4       # training only: the loss's z-loss
-    aux_coef: float = 1e-2     # training only: MoE load-balance coefficient
+    remat: bool = True         # activation checkpointing of each layer in training
+    remat_group: int = 0       # g > 1 (dividing n_layers): checkpoint every g layers
+    z_loss: float = 1e-4       # the loss's z-loss
+    aux_coef: float = 1e-2     # MoE load-balance coefficient
 
     @property
     def hd(self) -> int:
@@ -118,7 +120,22 @@ def _positions(positions, b: int, t: int, device) -> torch.Tensor:
     return L.token_positions(b, t, device) if positions is None else positions
 
 
-@torch.no_grad()
+def _layer(cfg: TransformerConfig, acfg: AttnConfig, x, positions, blk):
+    x = x + L.attention(blk["attn"], acfg, L.rmsnorm(blk["ln1"], x, cfg.norm_eps), positions)
+    y, a = _ffn(cfg, blk, L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
+    return x + y, a
+
+
+def _remat_groups(cfg: TransformerConfig, blocks: list) -> list[list]:
+    """The layers in the runs that one checkpoint covers: ``remat_group``
+    layers where it is above 1 and divides the depth (sqrt-remat), else
+    one."""
+    g = cfg.remat_group
+    if cfg.remat and g > 1 and len(blocks) % g == 0:
+        return [blocks[i:i + g] for i in range(0, len(blocks), g)]
+    return [[blk] for blk in blocks]
+
+
 def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             positions: torch.Tensor | None = None):
     """Full forward. Returns (hidden [B, T, D], aux loss).  (The reference's
@@ -126,13 +143,26 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     x = L.embed(params["embed"], tokens).to(cfg.act_dtype)
     positions = _positions(positions, x.shape[0], x.shape[1], x.device)
     acfg = cfg.attn_config()
+
+    def run(group, x, aux):
+        for blk in group:
+            x, a = _layer(cfg, acfg, x, positions, blk)
+            aux = aux + a
+        return x, aux
+
     aux = torch.zeros((), device=x.device)
-    for blk in params["blocks"]:
-        x = x + L.attention(blk["attn"], acfg, L.rmsnorm(blk["ln1"], x, cfg.norm_eps),
-                            positions)
-        y, a = _ffn(cfg, blk, L.rmsnorm(blk["ln2"], x, cfg.norm_eps))
-        x, aux = x + y, aux + a
+    for group in _remat_groups(cfg, params["blocks"]):
+        x, aux = L.remat_call(cfg.remat, run, group, x, aux)
     return L.rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def loss_fn(params: Params, cfg: TransformerConfig, batch: dict) -> torch.Tensor:
+    """Causal LM loss: cross entropy (with z-loss) plus ``aux_coef`` times
+    the MoE aux loss.  batch: tokens [B, T], labels [B, T] (+ positions)."""
+    h, aux = forward(params, cfg, batch["tokens"], positions=batch.get("positions"))
+    logits = L.unembed(params["embed"], h)
+    ce = L.cross_entropy(logits, batch["labels"], z_loss=cfg.z_loss)
+    return ce + cfg.aux_coef * aux
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=torch.bfloat16,

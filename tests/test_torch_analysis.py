@@ -22,6 +22,17 @@ from repro.analysis import spmd_audit as ref_spmd
 from repro_torch.analysis import ast_lint, contracts, hotpath_audit, lint, mesh_audit
 from repro_torch.analysis import memory_audit
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 

@@ -30,6 +30,17 @@ from repro_torch.data import (VectorPipelineConfig, dyadic_hyperplanes, make_que
                               make_vectors, sift_like)
 from repro_torch.kernels.topk import topf
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 
 

@@ -8,6 +8,8 @@ on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -1239,3 +1241,57 @@ def test_whisper_bfloat16_frames_card_logits_near_cpu(cuda):
     want, got = torch.stack(want), torch.stack(got)
     rms = float(want.pow(2).mean().sqrt())
     assert float((got - want).abs().max()) <= 0.1 * rms
+
+
+# ------------------------------------------------------------ LM training ---
+
+@pytest.mark.parametrize("arch_id", ["qwen2-7b", "granite-moe-1b-a400m", "qwen2-vl-7b",
+                                     "mamba2-130m", "zamba2-2.7b", "whisper-tiny"])
+def test_smoke_model_train_step_card_equals_cpu(cuda, arch_id):
+    """One train step of each family's smoke model (two microbatches of
+    the CLI's batch; whisper's frames widened to float32; the MoE dropless,
+    at capacity factor E / k; float32, TF32 off), the state made on the CPU
+    and copied to the card: the loss within
+    1e-5 relative, the gradient norm within 1e-4, and the parameters after
+    the step within 1e-3 of the step's rate where the CPU's gradient is far
+    from 0, as chip_smoke phase 15(a) holds the full-width models."""
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.configs import registry
+    from repro_torch.launch import steps, train
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    resolve_device(cuda)
+    arch = registry.get_config(arch_id)
+    cfg = arch.smoke_model
+    if getattr(cfg, "moe", None) is not None:      # dropless, as the CPU tests hold it
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    model = model_zoo.build(cfg, arch.family)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    host = steps.init_train_state(model, opt, torch.Generator().manual_seed(4), "cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=model.config.vocab, seq_len=32,
+                                             global_batch=4, seed=4))
+    step = steps.make_train_step(model, opt, 2)
+    batches = {}
+    for name, dev in (("cpu", "cpu"), ("card", cuda)):
+        batches[name] = train.make_batch_fn(model, arch.family, pipe, 32, dev)(0)
+        if "frames" in batches[name]:
+            batches[name]["frames"] = batches[name]["frames"].float()
+    grads = tree_leaves(adamw.value_and_grad(model.loss_fn, host.params, batches["cpu"])[1])
+    metrics = {name: {k: float(v) for k, v in step(state, batches[name])[1].items()}
+               for name, state in (("cpu", host), ("card", card))}
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(metrics["card"][key] - metrics["cpu"][key]) <= tol * abs(metrics["cpu"][key])
+    lr = metrics["cpu"]["lr"]
+    total = float(torch.cat([g.flatten() for g in grads]).pow(2).mean().sqrt())
+    for g, a, b in zip(grads, tree_leaves(host.params), tree_leaves(card.params)):
+        rms = float(g.pow(2).mean().sqrt())
+        if rms < 1e-6 * total:       # zero in exact arithmetic (whisper's key biases)
+            continue
+        sure = g.abs() > 0.1 * rms
+        diff = (b.cpu()[sure] - a[sure]).abs()
+        assert diff.numel() == 0 or float(diff.max()) <= 1e-3 * lr

@@ -1,9 +1,10 @@
 """The port's examples (``examples/torch_*.py``) on the CPU at a small size,
 each held to its own bar: the quickstart's recall@10 of at least 0.9, the
-k-NN graph's ``recall >= 0.90`` assert, and the retrieval's top-k ids at
-float32 and int8.  The modules they call are held against the reference
-elsewhere (``test_torch_build.py``, ``test_torch_knn_graph_baselines.py``,
-``test_torch_serve_loop.py``).  Without ``--device`` each example takes
+k-NN graph's ``recall >= 0.90`` assert, the retrieval's top-k ids at
+float32 and int8, and the LM training's restart from its checkpoint.  The
+modules they call are held against the reference elsewhere
+(``test_torch_build.py``, ``test_torch_knn_graph_baselines.py``,
+``test_torch_serve_loop.py``, ``test_torch_train.py``).  Without ``--device`` each example takes
 the card and raises here."""
 import importlib.util
 import pathlib
@@ -16,7 +17,8 @@ EXAMPLES = pathlib.Path(__file__).resolve().parents[1] / "examples"
 SMALL = {"torch_quickstart": ["--n", "2048", "--queries", "64"],
          "torch_knn_graph": ["--n", "2048"],
          "torch_rag_retrieve": ["--corpus", "2048", "--requests", "6"],
-         "torch_rag_serve": ["--corpus", "2048", "--requests", "6"]}
+         "torch_rag_serve": ["--corpus", "2048", "--requests", "6"],
+         "torch_train_lm": ["--steps", "4", "--batch", "4", "--seq", "32"]}
 
 
 def _example(name: str):
@@ -63,6 +65,15 @@ def test_rag_retrieve_serves_every_request(ann_dtype, capsys):
     assert all(len(set(r.tolist())) == 2 for r in ids)
     assert out["device_bytes"] > 0 and out["requests_per_s"] > 0
     assert "[done] 6 requests" in capsys.readouterr().out
+
+
+def test_train_lm_restarts_from_its_checkpoint(capsys):
+    out = _example("torch_train_lm").main(SMALL["torch_train_lm"] + ["--device", "cpu"])
+    first, second = out["first"], out["second"]
+    assert len(first["losses"]) == 2 and second["start_step"] == 2
+    assert len(second["losses"]) == 2
+    text = capsys.readouterr().out
+    assert "resumed from step 2" in text and "=== done" in text
 
 
 @pytest.mark.parametrize("name", sorted(SMALL))

@@ -90,9 +90,11 @@ def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
 
 
 def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
-    """``Server``, ``models.transformer.init`` and the serving CLI take the
-    card unless given ``device=``/``--device``, and raise without one."""
+    """``Server``, ``models.transformer.init``, the serving CLI and the
+    training CLI take the card unless given ``device=``/``--device``, and
+    raise without one."""
     from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
     from repro_torch.launch.serve import Server
     from repro_torch.models import transformer
 
@@ -103,6 +105,10 @@ def test_lm_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transformer.init(cfg, torch.Generator())
     assert Server("qwen2-7b", max_len=8, device="cpu").params["embed"]["table"].is_cpu
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "qwen2-7b", "--smoke", "--steps", "1"])
+    assert train.run(["--arch", "qwen2-7b", "--smoke", "--steps", "1", "--batch", "2",
+                      "--seq", "8", "--device", "cpu"])["losses"]
     p = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch", "qwen2-7b",
                         "--requests", "1"], cwd=ROOT, capture_output=True, text=True,
                        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",

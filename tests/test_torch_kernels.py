@@ -21,6 +21,17 @@ from _torch_merge_cases import L_VALUES, reservoir_pair
 from repro_torch.core.metrics import point_norms
 from repro_torch.kernels import edge_hash, gather_distance, leaf_knn, segmented_merge
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 METRICS = ("l2", "mips", "cosine")
 
 

@@ -20,6 +20,17 @@ from repro.kernels.topk import rowwise_topk as j_rowwise_topk
 from repro_torch.core.leader_assign import leader_assign
 from repro_torch.kernels import distance, topk
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 METRICS = ("l2", "mips", "cosine")
 
 

@@ -21,6 +21,17 @@ from repro_torch.core import leaf, pipnn
 from repro_torch.core.rbc import RBCParams
 from repro_torch.data import dyadic_hyperplanes
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 METHODS = ("bidirected", "directed", "inverted", "mst", "robust_prune")
 METRICS = ("l2", "mips")

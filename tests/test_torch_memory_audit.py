@@ -15,6 +15,17 @@ import torch
 from repro_torch.analysis import memory_audit as ma
 from repro_torch.analysis.memory_audit import MemProgram, MemSpec
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 BUDGET = 80 * 10**9       # one H100's 80 GB
 
 

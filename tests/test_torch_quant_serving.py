@@ -28,6 +28,17 @@ from repro_torch.core.serving import ServingIndex, _is_int8
 from repro_torch.data import VectorPipelineConfig, make_queries, make_vectors, sift_like
 from repro_torch.kernels import gather_distance_int8 as g8
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 METRICS = ("l2", "mips", "cosine")
 

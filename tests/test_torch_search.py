@@ -18,6 +18,17 @@ from repro_torch.core.serving import ServingIndex
 from repro_torch.core.validation import InvalidQueryError
 from repro_torch.data import VectorPipelineConfig, make_queries, make_vectors
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _few_threads():
+    """Two torch threads: under six test workers the default (one a core)
+    oversubscribes the cores on these small tensors."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = "cpu"
 
 
