@@ -314,6 +314,28 @@ Phases (any failure exits non-zero before the last line is printed):
    embedding's backward need not repeat their sums; the card's runs read
    bit-identical all the same).  Each row of the
    ``kernels`` line gains its ``phase15_launches``, all 0.
+16. LM serving on a ("data", "model") mesh (``launch/mesh.py::LMMesh``,
+   ``distributed/sharding.py``, the sharded transformer layers,
+   ``moe_apply_ep``; no kernel of the port runs in it), after phase 15's
+   models are freed: each model's weights made once on the card from the
+   seed, served on one shard and cut onto ``data 1 x model m`` (all shards
+   on this card, run one after another), batch 8, prompt 64, 16 new
+   tokens.  (a) llama3-405b (``fsdp_tp``: tensor parallel) at full width
+   cut 126 -> 2 layers in bfloat16 as published (8.5e9 parameters, 17 GB a
+   copy), m = 8: prefill and teacher-forced decode logits within
+   ``LM_BF16_CARD_TOL`` of the one-shard logits' RMS, each shard's
+   parameter bytes exactly its blocks.  (b) qwen2-7b (``fsdp``) at full
+   width cut to 4 layers in float32 (TF32 off), m = 4: greedy tokens
+   identical, logits within ``LM_F32_TOL``; again over a one-rank NCCL
+   group (``init_lm_mesh``), equal to the one-process mesh exactly.  (c)
+   granite-moe-1b-a400m (``ep_dp``) whole at its capacity factor 1.25 in
+   float32 activations, m = 4, logits (float32 KV caches) within
+   ``LM_BF16_CARD_TOL`` of the RMS (see ``MESH_RUNS``); and
+   ``moe_apply_ep`` on its first layer at full width over a 4-shard
+   `model` axis in float32 at capacity factor 8.0 against ``moe_apply``
+   within 1e-4.  Each run's prefill ms, decode tokens/s and peak bytes at
+   m = 1 and m.  Each row of the ``kernels`` line gains its
+   ``phase16_launches``, all 0.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -3791,6 +3813,242 @@ def phase_train(seed: int) -> dict:
     return out
 
 
+# phase 16: LM serving on a ("data", "model") mesh, all shards on the one
+# card: (architecture, layers kept (None: all), model_parallel, activation
+# dtype ("published": the config's own), the limit on the logits' error
+# over the one-shard logits' RMS (None: the dtype's, LM_F32_TOL for
+# float32 with greedy tokens identical, LM_BF16_CARD_TOL for bfloat16),
+# the KV cache's dtype in that check).  granite runs in float32 with a
+# float32 cache in the check, held at LM_BF16_CARD_TOL: its batch rows
+# split over the shards change cuBLAS's shapes and so the last bits of its
+# sums, and a near-tied route then flips; each bfloat16 rounding (the
+# activations, the KV cache) widens that difference and so the chance of
+# a flip (read 0.20 of the RMS in bfloat16 and 0.102 in float32 with the
+# bfloat16 cache in PR 28's first card runs, one flipped route in 16
+# steps; phase 14b's consistency rule reads 0.23-0.24 for the same reason)
+MESH_RUNS = (("llama3-405b", 2, 8, "published", None, "bfloat16"),
+             ("qwen2-7b", 4, 4, "float32", None, "bfloat16"),
+             ("granite-moe-1b-a400m", None, 4, "float32", LM_BF16_CARD_TOL, "float32"))
+MESH_BATCH, MESH_PROMPT, MESH_NEW = 8, 64, 16
+# granite's moe_apply_ep over a 4-shard `model` axis against moe_apply in
+# float32 at a capacity factor where neither drops a token (the
+# reference's own test's 8.0)
+MESH_EP_CF, MESH_EP_TOL = 8.0, 1e-4
+
+
+def _mesh_logits(server, params, batch, seq, prompt_len: int, max_len: int, cache_dtype):
+    """Logits [steps, B, V] (float32, gathered) of the server's model's
+    prefill of the prompts and its decode steps fed ``seq``'s next tokens,
+    on ``params`` (one shard's tree or ``MeshParams``), with a
+    ``cache_dtype`` KV cache."""
+    import torch
+
+    from repro_torch.distributed.sharding import MeshParams
+    from repro_torch.models import transformer
+
+    cfg = server.model.config
+    on_mesh = isinstance(params, MeshParams)
+    prefill = transformer.mesh_prefill if on_mesh else transformer.prefill
+    decode = transformer.mesh_decode_step if on_mesh else transformer.decode_step
+
+    def full(lg):
+        return lg.gather() if on_mesh else lg
+
+    logits, cache = prefill(params, cfg, batch["tokens"], max_len,
+                            positions=batch.get("positions"), cache_dtype=cache_dtype)
+    out = [full(logits)]
+    tok = torch.as_tensor(seq, device=out[0].device)
+    for i in range(prompt_len, seq.shape[1] - 1):
+        logits, cache = decode(params, cfg, tok[:, i:i + 1], cache)
+        out.append(full(logits))
+    return torch.stack(out).float()
+
+
+def _mesh_generate(server, prompts) -> tuple:
+    """(tokens, prefill ms, decode tokens/s, peak device bytes above what
+    the card held before) of one ``generate``."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    toks, stats = server.generate(prompts, MESH_NEW)
+    return toks, dict(prefill_ms=1e3 * stats["prefill_s"],
+                      decode_tok_per_s=stats["decode_tok_per_s"],
+                      peak_above_held=torch.cuda.max_memory_allocated() - held)
+
+
+def _on_mesh(server, mesh):
+    """``server``'s model and weights cut onto ``mesh`` by the arch's policy
+    (the same weights: each shard's blocks, nothing drawn again)."""
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps
+
+    arch = server.arch
+    out = copy.copy(server)
+    out.mesh = mesh
+    out.model = steps.build_model(arch, smoke=False, mesh=mesh)
+    out.params = sharding.shard_params(server.params, mesh, arch.family, arch.parallelism)
+    return out
+
+
+def _mesh_ep(server, seed: int) -> dict:
+    """granite's first MoE layer at full width in float32: ``moe_apply_ep``
+    over a ``data 1 x model 4`` mesh (T split over `model`) against
+    ``moe_apply``, on the prompts' embeddings after ``ln2``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import layers, moe
+
+    cfg = server.model.config
+    blk = server.params["blocks"][0]
+    p = {k: v.float() for k, v in blk["moe"].items() if k != "router"}
+    p["router"] = blk["moe"]["router"]
+    toks = torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)), device="cuda")
+    x = layers.rmsnorm(blk["ln2"], layers.embed(server.params["embed"], toks).float())
+    kw = dict(top_k=cfg.moe.top_k, n_experts=cfg.moe.n_experts, capacity_factor=MESH_EP_CF)
+    want, aux_want = moe.moe_apply(p, x, **kw)
+    mesh = make_lm_mesh(4, device="cuda")
+    x_spec = (None, "model", None)
+    parts = [sharding.shard(x, x_spec, mesh.shape, c) for c in mesh.local]
+    pp = [dict(router=p["router"], **{k: sharding.shard(p[k], moe.EP_SPEC, mesh.shape, c)
+                                      for k in moe.EXPERT_STACKS}) for c in mesh.local]
+    y, aux = moe.moe_apply_ep(pp, parts, mesh=mesh, x_spec=x_spec, **kw)
+    err = float((sharding.unshard(y, x_spec, mesh.shape) - want).abs().max())
+    aux_err = abs(float(aux) - float(aux_want))
+    check(err <= MESH_EP_TOL and aux_err <= MESH_EP_TOL,
+          f"phase16 moe_apply_ep off moe_apply by {err} (aux {aux_err}) > {MESH_EP_TOL}")
+    return dict(shape=list(x.shape), experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+                capacity_factor=MESH_EP_CF, max_abs_err=err, aux_err=aux_err, tol=MESH_EP_TOL,
+                y_rms=_rms(want))
+
+
+def _mesh_run(arch_id: str, n_layers, m: int, dtype: str, rms_tol, cache: str,
+              seed: int) -> dict:
+    """One architecture at full width (depth ``n_layers``) on the card from
+    a seed, once on one shard and once cut onto ``data 1 x model m``: both
+    ``generate`` ``MESH_NEW`` tokens for ``MESH_BATCH`` prompts of
+    ``MESH_PROMPT`` (prefill ms, decode tokens/s, peak bytes); each shard's
+    parameter bytes its blocks; the sharded logits (prefill, and the decode
+    steps teacher-forced on the one-shard tokens) against the one-shard
+    run's: float32 within ``LM_F32_TOL`` with greedy tokens identical (and
+    over a one-rank NCCL group exactly the one-process mesh's), bfloat16
+    within ``LM_BF16_CARD_TOL`` of the logits' RMS."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.mesh import init_lm_mesh, make_lm_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.tree import tree_flatten
+
+    t0 = time.perf_counter()
+    fields = {} if dtype == "published" else dict(act_dtype=getattr(torch, dtype))
+    max_len = MESH_PROMPT + MESH_NEW
+    with _arch_cut(n_layers, **fields):
+        one = Server(arch_id, smoke=False, max_len=max_len, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    cfg = one.model.config
+    names, leaves = tree_flatten(one.params)
+    out = dict(arch=arch_id, policy=one.arch.parallelism, layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab, act_dtype=str(cfg.act_dtype),
+               param_dtype=str(cfg.param_dtype), model_parallel=m,
+               params=sum(t.numel() for t in leaves),
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+               init_s=time.perf_counter() - t0, batch=MESH_BATCH, prompt=MESH_PROMPT,
+               new=MESH_NEW)
+    sv = _on_mesh(one, make_lm_mesh(m, device="cuda"))
+    specs = sharding.spec_leaves(one.params, sv.params.specs)
+    want_bytes = []
+    for tree, c in zip(sv.params.shards, sv.mesh.local):
+        want = sum(t.numel() * t.element_size() // int(np.prod(
+            [sharding.block_index(e, sv.mesh.shape, c)[1] for e in s] or [1]))
+            for t, s in zip(leaves, specs))
+        got = sharding.shard_bytes(tree)
+        check(got == want, f"phase16 {arch_id}: shard {c} holds {got} bytes, its blocks {want}")
+        want_bytes.append(got)
+    out["shard_bytes"] = want_bytes
+    out["replicated_bytes"] = sum(t.numel() * t.element_size() for t, s in zip(leaves, specs)
+                                  if not any(sharding.axes_of(e) for e in s))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    toks1, out["one_shard"] = _mesh_generate(one, prompts)
+    toks_m, out["mesh"] = _mesh_generate(sv, prompts)
+    out["tokens_equal"] = bool(np.array_equal(toks1, toks_m))
+    out["tokens_agree"] = float((toks1 == toks_m).mean())
+    seq = np.concatenate([prompts, toks1], axis=1)
+    batch = one.make_batch(prompts)
+    cache_dtype = getattr(torch, cache)
+    want = _mesh_logits(one, one.params, batch, seq, MESH_PROMPT, max_len, cache_dtype)
+    got = _mesh_logits(sv, sv.params, batch, seq, MESH_PROMPT, max_len, cache_dtype)
+    errs = (got - want).abs().amax(dim=(1, 2)).tolist()
+    rms = _rms(want)
+    exact = rms_tol is None and cfg.act_dtype == torch.float32
+    bounds = LM_F32_TOL if exact else ((rms_tol or LM_BF16_CARD_TOL) * rms,) * 2
+    out.update(prefill_err=errs[0], decode_errs=errs[1:], logit_rms=rms,
+               max_err_over_rms=max(errs) / rms, tol=bounds, check_cache_dtype=cache)
+    check(errs[0] <= bounds[0] and max(errs[1:]) <= bounds[1],
+          f"phase16 {arch_id}: mesh logits off the one-shard run's by {errs} > {bounds}")
+    if exact:
+        check(out["tokens_equal"], f"phase16 {arch_id}: mesh tokens {toks_m.tolist()} != "
+              f"one shard's {toks1.tolist()}")
+        # the same over a one-rank NCCL group: equal to the one-process mesh
+        with tempfile.TemporaryDirectory() as tmp:
+            store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+            mesh = init_lm_mesh(m, device="cuda", store=store, rank=0, world=1)
+            try:
+                check(mesh.group is not None and mesh.world == 1,
+                      f"phase16 mesh has no NCCL group: {mesh}")
+                sg = _on_mesh(one, mesh)
+                toks_g, out["nccl"] = _mesh_generate(sg, prompts)
+                grp = _mesh_logits(sg, sg.params, batch, seq, MESH_PROMPT, max_len, cache_dtype)
+                check(np.array_equal(toks_g, toks_m) and torch.equal(grp, got),
+                      f"phase16 {arch_id}: the NCCL group's run differs from the "
+                      f"one-process mesh's by {float((grp - got).abs().max())}")
+                out["nccl_equal"] = True
+                del sg, grp
+            finally:
+                mesh.close()
+    if arch_id == "granite-moe-1b-a400m":
+        out["moe_apply_ep"] = _mesh_ep(one, seed)
+    out["s"] = time.perf_counter() - t0
+    del one, sv, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_mesh(seed: int) -> dict:
+    """Phase 16: LM serving on the ("data", "model") mesh
+    (``launch/mesh.py::LMMesh``, ``distributed/sharding.py``, the sharded
+    transformer and ``moe_apply_ep``), ``_mesh_run`` for each of
+    ``MESH_RUNS``.  The launch counters are set to 0 before each run and
+    read after it: the LM launches none of the port's kernels.  The shards
+    run one after another on one card, so the times say nothing of the
+    speed on several cards."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "runs": {}}
+    for arch_id, n_layers, m, dtype, rms_tol, cache in MESH_RUNS:
+        kernels.reset_launch_counts()
+        rec = _mesh_run(arch_id, n_layers, m, dtype, rms_tol, cache, seed)
+        launches = _path_launches(f"phase16 {arch_id}", ())
+        check(not any(launches.values()), f"phase16 {arch_id}: the LM launched {launches}")
+        out["launches"][arch_id] = launches
+        out["runs"][arch_id] = rec
+        log("phase16 run", arch_id, json.dumps(rec))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
 def _sites(replaces: tuple) -> str:
     """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
     return " and :".join([replaces[0]] + [r.rpartition(":")[2] for r in replaces[1:]])
@@ -3938,6 +4196,14 @@ def main() -> int:
     trained = phase_train(args.seed)
     log("phase15 s", round(time.perf_counter() - t0, 3))
 
+    # phase 16 after phase 15's models are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase16 held before", torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    lm_mesh = phase_lm_mesh(args.seed)
+    log("phase16 s", round(time.perf_counter() - t0, 3))
+
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
     # launches are read from
@@ -4013,6 +4279,8 @@ def main() -> int:
         row.update(phase14_launches={k: v[counter] for k, v in lm["launches"].items()})
         # phase 15: LM training (none)
         row.update(phase15_launches={k: v[counter] for k, v in trained["launches"].items()})
+        # phase 16: LM serving on the mesh (none)
+        row.update(phase16_launches={k: v[counter] for k, v in lm_mesh["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -47,6 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshShape
 
 
 # ---------------------------------------------------------------------------
@@ -249,3 +250,180 @@ def init_mesh(n_shards: int, device=None, *, store=None, rank: int | None = None
                             timeout=datetime.timedelta(seconds=timeout_s), **kw)
     return ShardMesh(int(n_shards), group=dist.group.WORLD, rank=rank, world=world,
                      device=dev)
+
+
+# ---------------------------------------------------------------------------
+# The LM mesh: ("data", "model")
+# ---------------------------------------------------------------------------
+
+LM_AXES = ("data", "model")
+
+
+class LMMesh:
+    """The reference's ("data", "model") mesh (``make_local_mesh(model_parallel)``
+    there) for LM serving: ``data x model`` shards, shard (d, m) at index
+    ``d * model + m``, over ``world`` ranks, each holding the contiguous
+    block ``local`` of ``data * model / world`` shards (one process: all of
+    them).  Each exchange runs along one axis: the shards that differ only
+    in that axis's coordinate form a line, and each line is a ``ShardMesh``
+    (its group: None where the line lies in this process, unless the whole
+    world is one rank of a group; else the line's ranks), so the packing, the
+    SPMD contract and the ``observers`` are ``ShardMesh``'s.  A layout is
+    accepted where the shards a rank holds are whole rows of ``model`` or a
+    part of one row (``n_local`` divides ``model`` or ``model`` divides it).
+
+    The exchanges take and return one tensor a local shard, in the order of
+    ``local``; in one process the shards of a line share the result of a
+    gather or a sum (one tensor, not copies)."""
+
+    def __init__(self, data: int, model: int, *, group=None, rank: int = 0, world: int = 1,
+                 device=None, line_groups: dict | None = None):
+        check_lm_layout(data, model, world)
+        n = data * model
+        ln = n // world
+        self.data, self.model = int(data), int(model)
+        self.group, self.rank, self.world = group, int(rank), int(world)
+        self.device = device
+        self.shape = MeshShape(LM_AXES, (self.data, self.model))
+        self.n_shards, self.n_local = n, ln
+        self.local = [dict(data=s // model, model=s % model)
+                      for s in range(rank * ln, (rank + 1) * ln)]
+        groups = line_groups or {}
+        self._lines = {}
+        for axis in LM_AXES:
+            lines = {}
+            for j, c in enumerate(self.local):
+                key = c["model" if axis == "data" else "data"]
+                lines.setdefault(key, []).append(j)
+            meshes = {}
+            for key in lines:
+                ranks = line_ranks(axis, key, self.data, self.model, self.world)
+                if group is not None and len(ranks) == world:
+                    g = group
+                elif len(ranks) == 1:
+                    g = None
+                else:
+                    g = groups[(axis, tuple(ranks))]
+                size = self.shape.shape[axis]
+                meshes[key] = ShardMesh(size, group=g, rank=ranks.index(rank) if g else 0,
+                                        world=len(ranks) if g else 1, device=device)
+            self._lines[axis] = [(meshes[k], idxs) for k, idxs in sorted(lines.items())]
+
+    def __repr__(self) -> str:
+        return (f"LMMesh(data={self.data}, model={self.model}, rank={self.rank}, "
+                f"world={self.world}, group={self.group is not None}, device={self.device})")
+
+    # ---------------------------------------------------------- exchanges --
+    def _each_line(self, axis: str, parts: list, fn) -> list:
+        """``fn(line_mesh, line_parts)`` for each line of ``axis`` this
+        process holds, its result given to each of the line's shards; lines
+        with the very same parts share one result."""
+        if len(parts) != self.n_local:
+            raise ValueError(f"{len(parts)} parts for {self.n_local} local shards")
+        out, memo = [None] * len(parts), {}
+        for sm, idxs in self._lines[axis]:
+            line = [parts[j] for j in idxs]
+            ident = tuple(id(p) for p in line)
+            if ident not in memo:
+                memo[ident] = fn(sm, line)
+            for j in idxs:
+                out[j] = memo[ident]
+        return out
+
+    def all_gather(self, parts: list, axis: str, dim: int = 0) -> list:
+        """Each shard's part concatenated along ``dim`` in the order of the
+        ``axis`` coordinate, over the shards of its line."""
+        def gather(sm, line):
+            if sm.n_shards == 1:
+                return line[0]
+            if sm.group is None:
+                observe(sm, "all_gather", line)
+                return torch.cat(line, dim)
+            return sm.all_gather([p.movedim(dim, 0) for p in line]).movedim(0, dim).contiguous()
+        return self._each_line(axis, parts, gather)
+
+    def psum(self, parts: list, axis: str) -> list:
+        """The parts summed over each shard's line of ``axis``."""
+        return self._each_line(axis, parts,
+                               lambda sm, line: line[0] if sm.n_shards == 1 else sm.psum(line))
+
+    def all_to_all(self, sends: list, axis: str = "model") -> list:
+        """Each shard's [n_axis, cap, ...] buffer out along ``axis``; each
+        gets [n_axis, cap, ...] back, row ``i`` what the line's shard ``i``
+        sent it (``lax.all_to_all(split_axis=0, concat_axis=0,
+        tiled=True)``)."""
+        if len(sends) != self.n_local:
+            raise ValueError(f"{len(sends)} sends for {self.n_local} local shards")
+        out = [None] * len(sends)
+        for sm, idxs in self._lines[axis]:
+            got = [sends[j] for j in idxs]
+            if sm.n_shards > 1:
+                got = sm.all_to_all(got)
+            for j, g in zip(idxs, got):
+                out[j] = g
+        return out
+
+    def pmean(self, parts: list) -> list:
+        """The mean over every shard of the mesh (``lax.pmean`` over all
+        axes)."""
+        total = self.psum(self.psum(parts, "model"), "data")
+        return [t / self.n_shards for t in total]
+
+    def close(self) -> None:
+        """Destroy the process group (no-op in one process)."""
+        if self.group is not None:
+            dist.destroy_process_group()
+
+
+def check_lm_layout(data: int, model: int, world: int) -> None:
+    """``ValueError`` unless ``data x model`` shards lay out over ``world``
+    ranks as ``LMMesh`` takes them."""
+    if data < 1 or model < 1:
+        raise ValueError(f"mesh axes must be >= 1, got data={data}, model={model}")
+    if (data * model) % world:
+        raise ValueError(f"{data} x {model} shards do not divide over {world} ranks")
+    ln = data * model // world
+    if model % ln and ln % model:
+        raise ValueError(f"{ln} shards a rank neither divide model={model} nor are whole "
+                         "rows of it")
+
+
+def line_ranks(axis: str, key: int, data: int, model: int, world: int) -> list[int]:
+    """The ranks holding the line of ``axis`` at the other axis's
+    coordinate ``key``, in order."""
+    ln = data * model // world
+    if axis == "model":
+        shards = [key * model + m for m in range(model)]
+    else:
+        shards = [d * model + key for d in range(data)]
+    return sorted({s // ln for s in shards})
+
+
+def make_lm_mesh(model_parallel: int, data: int = 1, device=None) -> LMMesh:
+    """All ``data x model_parallel`` shards in this process on ``device``
+    (default: the card, raising without one): the one-card counterpart of
+    the reference's ``make_local_mesh(model_parallel)``."""
+    return LMMesh(int(data), int(model_parallel), device=resolve_device(device))
+
+
+def init_lm_mesh(model_parallel: int, data: int = 1, device=None, *, store=None,
+                 rank: int | None = None, world: int | None = None,
+                 timeout_s: float = 60.0) -> LMMesh:
+    """Join a process group of ``world`` ranks (as ``init_mesh``: torchrun's
+    env by default, NCCL on the card, gloo on the CPU) and return this
+    rank's part of a ``data x model_parallel`` LM mesh, with one subgroup
+    for each line of an axis that spans some but not all ranks (every rank
+    creates every subgroup, in one order).  The layout is checked before
+    the group is joined, so every rank raises alike."""
+    rank, world = _env_int("RANK", rank), _env_int("WORLD_SIZE", world)
+    check_lm_layout(data, model_parallel, world)
+    sm = init_mesh(data * model_parallel, device, store=store, rank=rank, world=world,
+                   timeout_s=timeout_s)
+    groups = {}
+    for axis, n_keys in (("model", data), ("data", model_parallel)):
+        for key in range(n_keys):
+            ranks = tuple(line_ranks(axis, key, data, model_parallel, world))
+            if 1 < len(ranks) < world and (axis, ranks) not in groups:
+                groups[(axis, ranks)] = dist.new_group(list(ranks))
+    return LMMesh(data, model_parallel, group=sm.group, rank=rank, world=world,
+                  device=sm.device, line_groups=groups)

@@ -35,6 +35,8 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch import steps
+from repro_torch.models import model_zoo
+from repro_torch.models.transformer import MeshLogits
 
 RETRIEVER_DTYPES = ("f32", "bf16", "int8")
 
@@ -123,18 +125,42 @@ class Server:
     to ``max_len`` tokens in all; a generate past ``max_len`` raises
     ``IndexError`` where the family keeps a KV cache, and serves in the
     ``ssm`` family, whose decode state does not grow.
-    ``model_parallel`` above 1 (tensor parallelism over cards) is not
-    ported yet (ROADMAP.md section 1)."""
+
+    ``model_parallel`` m above 1 serves the ``dense``, ``moe`` and ``vlm``
+    families on the one-process LM mesh ``data = 1, model = m`` on
+    ``device`` (``launch.mesh.make_lm_mesh``, the one-card counterpart of
+    the reference's ``make_local_mesh``), under the arch's policy; ``mesh``
+    takes an ``LMMesh`` made elsewhere (``init_lm_mesh`` over a process
+    group, every rank constructing the ``Server`` and calling ``generate``
+    alike), its device the server's (``device`` must then be None).  The
+    parameters are drawn from ``seed`` as at m = 1, layer by layer, each
+    shard keeping its blocks.  The ``ssm``, ``hybrid`` and ``encdec``
+    families on a mesh raise ``NotImplementedError`` (ROADMAP.md section 1)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True, model_parallel: int = 1,
-                 max_len: int = 256, seed: int = 0, device=None):
-        if model_parallel != 1:
-            raise NotImplementedError(
-                f"model_parallel={model_parallel}: tensor parallelism over cards is not "
-                "ported yet; see ROADMAP.md section 1")
-        self.device = resolve_device(device)
+                 max_len: int = 256, seed: int = 0, device=None, mesh=None):
+        from repro_torch.launch.mesh import make_lm_mesh
+
         self.arch = get_config(arch_id)
-        self.model = steps.build_model(self.arch, smoke=smoke)
+        if mesh is not None:
+            if device is not None:
+                raise ValueError(f"a Server on a mesh runs on mesh.device; device={device!r} "
+                                 "is not taken")
+            if model_parallel not in (1, mesh.model):
+                raise ValueError(f"model_parallel={model_parallel} disagrees with the mesh's "
+                                 f"model={mesh.model}")
+        elif model_parallel < 1:
+            raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
+        if (mesh is not None or model_parallel > 1) and \
+                self.arch.family not in model_zoo.TRANSFORMER_FAMILIES:
+            raise NotImplementedError(
+                f"{arch_id}: the {self.arch.family} family on a mesh is not ported yet; see "
+                "ROADMAP.md section 1")
+        self.device = resolve_device(device) if mesh is None else mesh.device
+        if mesh is None and model_parallel > 1:
+            mesh = make_lm_mesh(model_parallel, device=self.device)
+        self.mesh = mesh
+        self.model = steps.build_model(self.arch, smoke=smoke, mesh=mesh)
         self.max_len = max_len
         gen = torch.Generator(device=self.device).manual_seed(seed)
         self.params = self.model.init(gen, self.device)
@@ -189,7 +215,14 @@ class Server:
         }
 
     @staticmethod
-    def _sample(logits: torch.Tensor, temperature: float, gen) -> torch.Tensor:
+    def _sample(logits, temperature: float, gen) -> torch.Tensor:
+        """The next token [B, 1] of each row.  On a mesh, greedy combines
+        the shards' maxima (``MeshLogits.greedy``); sampling gathers the
+        logits, so the draws are the one-shard server's."""
+        if isinstance(logits, MeshLogits):
+            if temperature <= 0:
+                return logits.greedy()
+            logits = logits.gather()
         if temperature <= 0:
             return torch.argmax(logits, -1)[:, None]
         probs = torch.softmax(logits.float() / temperature, dim=-1)

@@ -4,13 +4,16 @@ an architecture, which ``launch/serve.py::Server`` serves and
 
 The reference's prefill and decode step builders wrap ``Model.prefill``
 and ``Model.decode_step`` to be jitted; eager PyTorch calls them directly.
-Its GSPMD machinery (the mesh arguments of ``make_train_step``,
-``microbatch_constraint``, ``abstract_train_state``,
-``train_state_shardings``, the cell programs and the sharding helpers)
-has no counterpart on one card (ROADMAP.md section 1).
+``build_model(..., mesh=)`` builds the model on an LM mesh
+(``launch.mesh.LMMesh``) under the arch's policy, for serving.  The train
+step's mesh arguments (``make_train_step``'s, ``microbatch_constraint``,
+``train_state_shardings``) are not ported yet (ROADMAP.md section 1); the
+cell programs, ``abstract_train_state`` and ``act_sharding_for`` are jax
+lowering machinery with no counterpart.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, NamedTuple
 
 from repro_torch.configs.base import ArchConfig
@@ -18,9 +21,15 @@ from repro_torch.models import model_zoo
 from repro_torch.optim import adamw
 
 
-def build_model(arch: ArchConfig, *, smoke: bool = False) -> model_zoo.Model:
-    """The full-size model of ``arch``, or its smoke model."""
-    return model_zoo.build(arch.smoke_model if smoke else arch.model, arch.family)
+def build_model(arch: ArchConfig, *, smoke: bool = False, moe_impl: str | None = None,
+                mesh=None) -> model_zoo.Model:
+    """The full-size model of ``arch``, or its smoke model; ``moe_impl``
+    replaces the config's MoE dispatch where it has one; on ``mesh`` (an
+    ``LMMesh``) under ``arch.parallelism``."""
+    cfg = arch.smoke_model if smoke else arch.model
+    if moe_impl is not None and hasattr(cfg, "moe_impl"):
+        cfg = dataclasses.replace(cfg, moe_impl=moe_impl)
+    return model_zoo.build(cfg, arch.family, mesh=mesh, policy=arch.parallelism)
 
 
 class TrainState(NamedTuple):

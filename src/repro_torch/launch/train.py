@@ -96,8 +96,8 @@ def run(argv=None) -> dict:
     args = parse_args(argv)
     if args.model_parallel != 1:
         raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: tensor parallelism over cards is not "
-            "ported yet; see ROADMAP.md section 1")
+            f"--model-parallel {args.model_parallel}: training with tensor parallelism over "
+            "a mesh is not ported yet (serving is: launch/serve.py); see ROADMAP.md section 1")
     dev = resolve_device(args.device)
     arch = get_config(args.arch)
     model = steps.build_model(arch, smoke=args.smoke)

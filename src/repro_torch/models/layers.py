@@ -13,10 +13,11 @@ softmax run in float32 whatever the activation dtype; the activations
 
 Attention is plain PyTorch following the reference's recurrence; the
 reference computes it in XLA, not in a Pallas kernel.  The reference's
-``pin_activations`` (a GSPMD sharding constraint) has no counterpart on
-one card, and neither have its two other recurrences, selected only by its
-GSPMD cell programs: ``_sdpa_flash_sp`` (sequence parallelism) and
-``_sdpa_chunked`` (ROADMAP.md section 1).
+``pin_activations`` (a GSPMD sharding constraint) has no counterpart: on
+an LM mesh the port lays out its activations itself
+(``models/transformer.py``).  Nor have its two other recurrences, selected
+only by its GSPMD cell programs: ``_sdpa_flash_sp`` (sequence
+parallelism) and ``_sdpa_chunked`` (ROADMAP.md section 1).
 """
 from __future__ import annotations
 
@@ -183,9 +184,16 @@ def _rotate_heads(cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor) -> 
     return x
 
 
+def _proj(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """``dense``, then the output columns ``p["cols"]`` where given (a
+    tensor-parallel shard's heads out of the whole projection)."""
+    y = dense(p, x)
+    return y[..., p["cols"]] if "cols" in p else y
+
+
 def _project_q(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
     b, t, _ = x.shape
-    q = dense(p["wq"], x).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    q = _proj(p["wq"], x).reshape(b, t, cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
     return _rotate_heads(cfg, q, positions)
@@ -193,8 +201,8 @@ def _project_q(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Ten
 
 def _project_qkv(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor):
     b, t, _ = x.shape
-    k = dense(p["wk"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
-    v = dense(p["wv"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    k = _proj(p["wk"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
+    v = _proj(p["wv"], x).reshape(b, t, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
     return _project_q(p, cfg, x, positions), _rotate_heads(cfg, k, positions), v
@@ -266,24 +274,29 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tens
     return dense(p["wo"], out.reshape(b, t, cfg.n_heads * cfg.head_dim))
 
 
+def attend_prefill(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
+                   cache_len: int):
+    """``attention_prefill`` before its output projection: the heads'
+    outputs [B, T, H*hd] and the [B, cache_len, KV, hd] KV cache."""
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = _sdpa_flash(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
+    b, t = x.shape[:2]
+    return (out.reshape(b, t, cfg.n_heads * cfg.head_dim),
+            (_pad_time(k, cache_len - t), _pad_time(v, cache_len - t)))
+
+
 def attention_prefill(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,
                       cache_len: int):
     """Prefill returning the output and a [B, cache_len, KV, hd] KV cache,
     zero past the prompt."""
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _sdpa_flash(q, k, v, causal=cfg.causal, q_chunk=cfg.q_chunk, k_chunk=cfg.k_chunk)
-    b, t = x.shape[:2]
-    y = dense(p["wo"], out.reshape(b, t, cfg.n_heads * cfg.head_dim))
-    return y, (_pad_time(k, cache_len - t), _pad_time(v, cache_len - t))
+    out, cache = attend_prefill(p, cfg, x, positions, cache_len)
+    return dense(p["wo"], out), cache
 
 
-def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, position: int,
-                     cache: tuple[torch.Tensor, torch.Tensor], cache_index: int):
-    """One-token decode at ``position``. x: [B, 1, D]; cache k/v: [B, S, KV, hd].
-
-    Writes the token's k/v into the cache at ``cache_index`` (in place) and
-    returns (y [B, 1, D], the cache).  Entries beyond ``cache_index`` are
-    masked out of the softmax."""
+def attend_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, position: int,
+                  cache: tuple[torch.Tensor, torch.Tensor], cache_index: int):
+    """``attention_decode`` before its output projection: the heads'
+    outputs [B, 1, H*hd], the cache written at ``cache_index``."""
     b = x.shape[0]
     kc, vc = cache
     s = kc.shape[1]
@@ -304,8 +317,18 @@ def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, position: int,
     logits = torch.where(valid, logits, NEG)
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", w, vc.float())
-    o = o.reshape(b, 1, h * hd).to(x.dtype)
-    return dense(p["wo"], o), (kc, vc)
+    return o.reshape(b, 1, h * hd).to(x.dtype), (kc, vc)
+
+
+def attention_decode(p: Params, cfg: AttnConfig, x: torch.Tensor, position: int,
+                     cache: tuple[torch.Tensor, torch.Tensor], cache_index: int):
+    """One-token decode at ``position``. x: [B, 1, D]; cache k/v: [B, S, KV, hd].
+
+    Writes the token's k/v into the cache at ``cache_index`` (in place) and
+    returns (y [B, 1, D], the cache).  Entries beyond ``cache_index`` are
+    masked out of the softmax."""
+    o, cache = attend_decode(p, cfg, x, position, cache, cache_index)
+    return dense(p["wo"], o), cache
 
 
 # -------------------------------------------------------------------- MLP ---

@@ -27,7 +27,10 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+
+TRANSFORMER_FAMILIES = ("dense", "moe", "vlm")
 
 
 class Model(NamedTuple):
@@ -53,8 +56,44 @@ def _train_spec(family: str, d_model: int, b: int, t: int) -> dict:
     return spec
 
 
-def build(cfg: Any, family: str) -> Model:
-    if family in ("dense", "moe", "vlm"):
+def _build_on_mesh(cfg: Any, family: str, mesh, policy: str) -> Model:
+    if family not in TRANSFORMER_FAMILIES:
+        raise NotImplementedError(
+            f"the {family} family on a mesh is not ported yet; see ROADMAP.md section 1")
+    if policy not in sharding.POLICIES:
+        raise ValueError(f"unknown policy {policy!r}; one of {sharding.POLICIES}")
+
+    def init(generator, device=None):
+        dev = mesh.device if device is None else device
+        return sharding.shard_parts(transformer.init_parts(cfg, generator, dev), mesh, family,
+                                    policy, cfg.n_layers)
+
+    def forward(params, batch):
+        return transformer.mesh_forward(params, cfg, batch["tokens"],
+                                        positions=batch.get("positions"))[0]
+
+    def prefill(params, batch, max_len):
+        return transformer.mesh_prefill(params, cfg, batch["tokens"], max_len,
+                                        positions=batch.get("positions"))
+
+    def decode(params, token, cache):
+        return transformer.mesh_decode_step(params, cfg, token, cache)
+
+    def loss(params, batch):
+        raise NotImplementedError("training on a mesh is not ported yet; see ROADMAP.md "
+                                  "section 1")
+
+    return Model(family=family, config=cfg, init=init, forward=forward, loss_fn=loss,
+                 prefill=prefill, decode_step=decode,
+                 train_batch_spec=lambda b, t: _train_spec(family, cfg.d_model, b, t))
+
+
+def build(cfg: Any, family: str, *, mesh=None, policy: str = "fsdp_tp") -> Model:
+    """The model of ``cfg`` (of ``family``); on ``mesh`` (an ``LMMesh``)
+    under ``policy`` where one is given."""
+    if mesh is not None:
+        return _build_on_mesh(cfg, family, mesh, policy)
+    if family in TRANSFORMER_FAMILIES:
         def forward(params, batch):
             return transformer.forward(params, cfg, batch["tokens"],
                                        positions=batch.get("positions"))[0]

@@ -421,8 +421,8 @@ def _fields_equal(got, want, where):
     wf = {f.name for f in dataclasses.fields(want)}
     assert gf <= wf, f"{where}: fields the reference lacks {gf - wf}"
     if isinstance(want, JT.TransformerConfig):
-        assert wf - gf == {"act_sharding", "moe_impl", "attn_impl"}
-        assert want.act_sharding is None and want.moe_impl == "gspmd"
+        assert wf - gf == {"act_sharding", "attn_impl"}
+        assert want.act_sharding is None and want.moe_impl == got.moe_impl == "gspmd"
         assert want.attn_impl == "flash"
     elif isinstance(want, JE.EncDecConfig):
         assert wf - gf == {"attn_impl"} and want.attn_impl == "flash"
