@@ -301,15 +301,15 @@ Phases (any failure exits non-zero before the last line is printed):
    two microbatches, 10 steps at peak rate 3e-4 (the CLI's default 3e-3
    is the smoke models'; see ``TRAIN_RUNS``); mamba2-130m whole at
    ``examples/train_lm.py``'s settings (batch 16, seq 128, two
-   microbatches), 20 steps: step ms (the median from the third step),
+   microbatches), 10 steps (20 until phase 17): step ms (the median from the third step),
    tokens/s, peak device bytes above what the card held, the losses (the
    mean of the last three steps below the first three's), and one more
    step traced (device-busy share, top kernels); then qwen2-7b for 3 steps
    without remat, whose peak must exceed the remat run's.  (c) mamba2-130m
    through the CLI (batch 4, seq 64, one microbatch) with ``--ckpt-dir``
-   in a temporary directory, a SIGTERM in step 6 (``RunGuard``'s path:
-   checkpoint, stop), ``--resume`` to step 12: it prints ``resumed from
-   step 6`` and its losses are within 1e-3 relative of an uninterrupted
+   in a temporary directory, a SIGTERM in step 3 (``RunGuard``'s path:
+   checkpoint, stop), ``--resume`` to step 6 (6 and 12 until phase 17): it
+   prints ``resumed from step 3`` and its losses are within 1e-3 relative of an uninterrupted
    run's (no deterministic algorithms are asked for: cuBLAS and the
    embedding's backward need not repeat their sums; the card's runs read
    bit-identical all the same).  Each row of the
@@ -328,14 +328,50 @@ Phases (any failure exits non-zero before the last line is printed):
    width cut to 4 layers in float32 (TF32 off), m = 4: greedy tokens
    identical, logits within ``LM_F32_TOL``; again over a one-rank NCCL
    group (``init_lm_mesh``), equal to the one-process mesh exactly.  (c)
-   granite-moe-1b-a400m (``ep_dp``) whole at its capacity factor 1.25 in
-   float32 activations, m = 4, logits (float32 KV caches) within
+   granite-moe-1b-a400m (``ep_dp``) cut to 12 of its 24 layers (whole
+   until phase 17 came) at its capacity factor 1.25 in float32
+   activations, m = 4, logits (float32 KV caches) within
    ``LM_BF16_CARD_TOL`` of the RMS (see ``MESH_RUNS``); and
    ``moe_apply_ep`` on its first layer at full width over a 4-shard
    `model` axis in float32 at capacity factor 8.0 against ``moe_apply``
    within 1e-4.  Each run's prefill ms, decode tokens/s and peak bytes at
    m = 1 and m.  Each row of the ``kernels`` line gains its
    ``phase16_launches``, all 0.
+17. LM training on a ("data", "model") mesh (``launch/steps.py``'s mesh
+   train step, ``transformer.mesh_loss_fn`` through the exchanges,
+   ``sharding.reduce_replicated`` / ``global_norm``, AdamW over
+   ``MeshParams``, ``distributed/elastic.py``, ``distributed/compression.py``
+   and ``python -m repro_torch.launch.train --model-parallel``; no kernel of
+   the port runs in it), after phase 16's models are freed; all shards on
+   this card, one after another; one JSON line a run.  (a) qwen2-7b
+   (``fsdp``) at full width cut to 2 layers in float32 (TF32 off), m = 4:
+   one ``make_train_step`` of two microbatches, batch 4, seq 64, the mesh
+   state cut from the one-shard state, against the one-shard step: the
+   loss within 1e-5 relative, the gradient norm within 1e-4, the parameters
+   after the step within 1e-3 of the step's rate where |g| exceeds a tenth
+   of its leaf's RMS; again over a one-rank NCCL group (``init_lm_mesh``)
+   against the one-process mesh (the read difference reported); one
+   traced mesh step.  (b) granite-moe-1b-a400m (``ep_dp``) whole in float32
+   activations, dropless (capacity factor E / k), m = 4, the same step and
+   limits; then the step with ``moe_impl="ep_a2a"``: its loss within 1e-5
+   of the default dispatch's.  (c) llama3-405b (``fsdp_tp``) at full width
+   cut to 1 layer in bfloat16 with bfloat16 moments, m = 8, batch 8, seq
+   128: each shard's state bytes exactly its blocks, and the loss and
+   gradient norm within ``LM_BF16_CARD_TOL`` relative of the same step at m
+   = 2 (run after the m = 8 state is freed).  (d) the train CLI on qwen2-7b
+   at full width cut to 1 layer in float32: six steps at m = 4 stopped by
+   ``RunGuard`` after step 3 (a checkpoint at 3), whose files equal a
+   one-card save of the state it holds (names, the manifest, each array's
+   shape, dtype and bytes), then
+   ``--resume --model-parallel 2`` to step 6: it prints ``resumed from step
+   3 onto`` and its losses are within 1e-5 relative of an uninterrupted m =
+   4 six-step run's.  (e) ``compressed_psum`` on (d)'s first two steps'
+   gradients (one a data coordinate, each cut over `model`) over
+   ``make_lm_mesh(2, data=2)``: "none" the exact mean, "bf16" within one
+   bfloat16 ulp and "int8" within one int8 step of the scale of it, each
+   residual exactly ``g32 - decompress(...)``, ``wire_bytes`` its count.
+   Each run's step ms, tokens/s and peak bytes above held (at m = 1 and m).
+   Each row of the ``kernels`` line gains its ``phase17_launches``, all 0.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -3519,13 +3555,16 @@ TRAIN_GRAD_RMS_TOL, TRAIN_GRAD_MAX_TOL = 1e-4, 1e-2
 # 7B-class models (the CLI's default 3e-3 is the smoke models': at width
 # 3584 AdamW's first steps move each activation by about its own size, and
 # a 10-step run at 3e-3 diverged on the H100, 12.7 -> 32.8); mamba2-130m at
-# examples/train_lm.py's settings; qwen2-7b again without remat
-TRAIN_RUNS = (("qwen2-7b", 4, 8, 1024, 2, 10, 3e-4), ("mamba2-130m", None, 16, 128, 2, 20, 3e-3))
+# examples/train_lm.py's settings, 10 steps (20 until phase 17 came: its
+# loss falls from 10.97 to 7.31 in the first ten); qwen2-7b again without
+# remat
+TRAIN_RUNS = (("qwen2-7b", 4, 8, 1024, 2, 10, 3e-4), ("mamba2-130m", None, 16, 128, 2, 10, 3e-3))
 TRAIN_NO_REMAT_STEPS = 3
 # (c) mamba2-130m stopped by RunGuard's flag after step TRAIN_STOP, resumed
-# to TRAIN_RESTART_STEPS; its losses against an uninterrupted run's
-# (relative; cuBLAS and the embedding's backward are not deterministic)
-TRAIN_STOP, TRAIN_RESTART_STEPS, TRAIN_RESTART_RTOL = 6, 12, 1e-3
+# to TRAIN_RESTART_STEPS (6 and 12 until phase 17 came); its losses against
+# an uninterrupted run's (relative; cuBLAS and the embedding's backward are
+# not deterministic)
+TRAIN_STOP, TRAIN_RESTART_STEPS, TRAIN_RESTART_RTOL = 3, 6, 1e-3
 
 
 def _train_argv(arch_id: str, batch: int, seq: int, micro: int, steps: int, seed: int,
@@ -3535,17 +3574,18 @@ def _train_argv(arch_id: str, batch: int, seq: int, micro: int, steps: int, seed
 
 
 @contextlib.contextmanager
-def _grads_seen():
+def _grads_seen(keep: int | None = None):
     """Within it, every ``adamw.accumulate_grads`` call's gradients are kept
-    in the yielded list (the train step reads the function from its module
-    at each call)."""
+    in the yielded list (the first ``keep`` where given; the train step
+    reads the function from its module at each call)."""
     from repro_torch.optim import adamw
 
     seen, orig = [], adamw.accumulate_grads
 
     def spy(*a, **kw):
         out = orig(*a, **kw)
-        seen.append(out[1])
+        if keep is None or len(seen) < keep:
+            seen.append(out[1])
         return out
 
     adamw.accumulate_grads = spy
@@ -3828,7 +3868,7 @@ def phase_train(seed: int) -> dict:
 # steps; phase 14b's consistency rule reads 0.23-0.24 for the same reason)
 MESH_RUNS = (("llama3-405b", 2, 8, "published", None, "bfloat16"),
              ("qwen2-7b", 4, 4, "float32", None, "bfloat16"),
-             ("granite-moe-1b-a400m", None, 4, "float32", LM_BF16_CARD_TOL, "float32"))
+             ("granite-moe-1b-a400m", 12, 4, "float32", LM_BF16_CARD_TOL, "float32"))
 MESH_BATCH, MESH_PROMPT, MESH_NEW = 8, 64, 16
 # granite's moe_apply_ep over a 4-shard `model` axis against moe_apply in
 # float32 at a capacity factor where neither drops a token (the
@@ -4048,6 +4088,501 @@ def phase_lm_mesh(seed: int) -> dict:
     out["s"] = time.perf_counter() - t0
     return out
 
+# phase 17: LM training on a ("data", "model") mesh, all shards on the one
+# card.  (a), (b): (architecture, layers kept (None: all), model_parallel,
+# a rerun over a one-rank NCCL group, a rerun with moe_impl "ep_a2a"), in
+# float32 activations (TF32 off), an MoE dropless (capacity factor E / k,
+# where ep_a2a's per-shard capacities drop nothing either); one
+# make_train_step of MESH_TRAIN_MICRO microbatches of a batch
+# MESH_TRAIN_BATCH x MESH_TRAIN_SEQ, held to phase 15(a)'s TRAIN_* limits
+MESH_TRAIN_PARITY = (("qwen2-7b", 2, 4, True, False),
+                     ("granite-moe-1b-a400m", None, 4, False, True))
+MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_MICRO = 4, 64, 2
+# (c) llama3-405b at full width in bfloat16 with bfloat16 moments:
+# (layers kept, model_parallel, the check's model_parallel, batch, seq),
+# one microbatch; the loss and gradient norm held at LM_BF16_CARD_TOL
+MESH_TRAIN_TP = (1, 8, 2, 8, 128)
+# (d) the train CLI's elastic restore on qwen2-7b at full width in float32:
+# (layers kept, m of the first run, m of the resumed run, the step the guard
+# stops after, steps, batch, seq, peak rate); the steps and rate fix the
+# schedule, so the stopped run and the resumed one run the uninterrupted
+# run's schedule; (e) compressed_psum on that run's first two gradients
+MESH_ELASTIC = (1, 4, 2, 3, 6, 4, 64, 3e-4)
+MESH_ELASTIC_RTOL = 1e-5
+
+
+def _timed_step(step, state, batch) -> tuple:
+    """(state, metrics, {step_ms, peak_above_held}) of one train step."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return state, {k: float(v) for k, v in metrics.items()}, dict(
+        step_ms=1e3 * sec, peak_above_held=torch.cuda.max_memory_allocated() - held,
+        held_before=held)
+
+
+def _param_errors(grads, want, got, lr: float, tag: str) -> dict:
+    """The parameters ``got`` after a step against ``want`` (trees of one
+    structure) where the gradient ``grads`` exceeds ``TRAIN_PARAM_MASK`` of
+    its leaf's RMS: within ``TRAIN_PARAM_LR`` of the step's rate."""
+    import torch
+
+    from repro_torch.tree import tree_flatten, tree_leaves
+
+    names, gl = tree_flatten(grads)
+    total = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in gl)
+                             / sum(g.numel() for g in gl)))
+    worst, compared, noise = 0.0, 0, []
+    for name, g, a, b in zip(names, gl, tree_leaves(want), tree_leaves(got)):
+        rms = float(g.double().pow(2).mean().sqrt())
+        if rms < 1e-6 * total:           # zero in exact arithmetic: rounding noise
+            noise.append(name)
+            continue
+        sure = g.abs() > TRAIN_PARAM_MASK * rms
+        compared += int(sure.sum())
+        if bool(sure.any()):
+            err = float((b[sure].float() - a[sure].float()).abs().max())
+            check(err <= TRAIN_PARAM_LR * lr, f"phase17 {tag}: parameter {name} after the step "
+                  f"off by {err} > {TRAIN_PARAM_LR} x lr {lr}")
+            worst = max(worst, err / lr)
+    return dict(param_max_err_over_lr=worst, params_compared=compared, noise_leaves=noise)
+
+
+def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
+                       seed: int) -> dict:
+    """(a), (b): one ``make_train_step`` of ``arch_id`` at full width on one
+    shard and on ``data 1 x model m`` from the same state (made once on the
+    card from the seed; the mesh's cut from a copy), held to the
+    ``TRAIN_*`` limits; then over a one-rank NCCL group, or with the
+    ``ep_a2a`` dispatch, against the one-process mesh."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import init_lm_mesh, make_lm_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.trace_build import _region
+    from repro_torch.tree import tree_flatten, tree_map
+
+    cuda = torch.device("cuda")
+    arch = registry.get_config(arch_id)
+    cfg = _dropless(dataclasses.replace(arch.model, n_layers=n_layers or arch.model.n_layers,
+                                        act_dtype=torch.float32))
+    one = model_zoo.build(cfg, arch.family)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    t0 = time.perf_counter()
+    init = steps.init_train_state(one, opt, torch.Generator(device=cuda).manual_seed(seed), cuda)
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN_SEQ,
+                                             global_batch=MESH_TRAIN_BATCH, seed=seed))
+    batch = train.make_batch_fn(one, arch.family, pipe, MESH_TRAIN_SEQ, cuda)(0)
+    tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
+    out = dict(arch=arch_id, policy=arch.parallelism, layers=cfg.n_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab, act_dtype="float32", model_parallel=m,
+               params=sum(t.numel() for t in tree_flatten(init.params)[1]),
+               batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, micro=MESH_TRAIN_MICRO,
+               capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+               init_s=time.perf_counter() - t0)
+
+    def report(rec: dict, metrics: dict) -> dict:
+        return dict(metrics=metrics, tokens_per_s=tokens / (rec["step_ms"] / 1e3), **rec)
+
+    # one shard
+    step = steps.make_train_step(one, opt, MESH_TRAIN_MICRO)
+    with _grads_seen(keep=1) as seen:
+        st, met1, rec = _timed_step(step, tree_map(torch.clone, init), batch)
+    out["one_shard"] = report(rec, met1)
+    grads, want = seen[0], st.params
+    del st, seen
+
+    def mesh_step(mesh, impl=None):
+        c = cfg if impl is None else dataclasses.replace(cfg, moe_impl=impl)
+        model = model_zoo.build(c, arch.family, mesh=mesh, policy=arch.parallelism)
+        state = steps.shard_train_state(tree_map(torch.clone, init), mesh, arch.family,
+                                        arch.parallelism)
+        mstep = steps.make_train_step(model, opt, MESH_TRAIN_MICRO, mesh=mesh,
+                                      policy=arch.parallelism)
+        state, met, rec = _timed_step(mstep, state, batch)
+        state_bytes = sum(t.numel() * t.element_size() for tree in
+                          (state.params, state.opt.m, state.opt.v)
+                          for t in sharding.distinct_leaves(tree)[0])
+        # the logical parameters; the step again (writing them in place), for a trace
+        return (met, rec, sharding.unshard_params(state.params), state_bytes,
+                lambda: mstep(state, batch))
+
+    met_m, rec, got, state_bytes, again = mesh_step(make_lm_mesh(m, device="cuda"))
+    out["mesh"] = dict(report(rec, met_m), state_bytes=state_bytes)
+    lr = met1["lr"]
+    loss_rel = abs(met_m["loss"] - met1["loss"]) / abs(met1["loss"])
+    gnorm_rel = abs(met_m["grad_norm"] - met1["grad_norm"]) / met1["grad_norm"]
+    out.update(loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
+               **_param_errors(grads, want, got, lr, arch_id))
+    check(loss_rel <= TRAIN_LOSS_RTOL,
+          f"phase17 {arch_id}: mesh loss off the one shard's by {loss_rel} relative")
+    check(gnorm_rel <= TRAIN_GNORM_RTOL,
+          f"phase17 {arch_id}: mesh gradient norm off the one shard's by {gnorm_rel} relative")
+    del grads, want
+    if nccl:
+        got = tree_map(torch.clone, got)      # the traced step writes the mesh state
+        out["trace"] = _region("mesh train step", again)
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    if nccl:
+        with tempfile.TemporaryDirectory() as tmp:
+            store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+            mesh = init_lm_mesh(m, device="cuda", store=store, rank=0, world=1)
+            try:
+                check(mesh.group is not None and mesh.world == 1,
+                      f"phase17 mesh has no NCCL group: {mesh}")
+                met_g, rec, got_g, _, again = mesh_step(mesh)
+                del again
+            finally:
+                mesh.close()
+        diff = max(float((a - b).abs().max()) for a, b in
+                   zip(tree_flatten(got_g)[1], tree_flatten(got)[1]))
+        out["nccl"] = report(rec, met_g)
+        out.update(nccl_loss_diff=met_g["loss"] - met_m["loss"],
+                   nccl_grad_norm_diff=met_g["grad_norm"] - met_m["grad_norm"],
+                   nccl_param_max_diff=diff,
+                   nccl_equal=met_g["loss"] == met_m["loss"] and diff == 0.0)
+        check(abs(met_g["loss"] - met_m["loss"]) <= TRAIN_LOSS_RTOL * abs(met_m["loss"])
+              and diff <= TRAIN_PARAM_LR * lr,
+              f"phase17 {arch_id}: the NCCL group's step differs from the one-process mesh's "
+              f"(loss {met_g['loss']} vs {met_m['loss']}, parameters by {diff})")
+        del got_g
+    if ep:
+        met_e, rec, _, _, again = mesh_step(make_lm_mesh(m, device="cuda"), impl="ep_a2a")
+        del again
+        rel = abs(met_e["loss"] - met_m["loss"]) / abs(met_m["loss"])
+        out["ep_a2a"] = dict(report(rec, met_e), loss_rel_err=rel)
+        check(rel <= TRAIN_LOSS_RTOL,
+              f"phase17 {arch_id}: ep_a2a loss off the default dispatch's by {rel} relative")
+    del init, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+def _mesh_train_tp(seed: int) -> dict:
+    """(c): llama3-405b at full width, ``MESH_TRAIN_TP``'s depth, in
+    bfloat16 with bfloat16 moments, its state made on ``data 1 x model m``
+    from the seed for m = 8 and then m = 2 (the m = 8 state freed first):
+    each shard's state bytes exactly its blocks; one train step each, the
+    loss and gradient norm at m = 8 within ``LM_BF16_CARD_TOL`` relative of
+    m = 2's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten
+
+    n_layers, m_run, m_check, batch_n, seq = MESH_TRAIN_TP
+    cuda = torch.device("cuda")
+    arch = registry.get_config("llama3-405b")
+    cfg = dataclasses.replace(arch.model, n_layers=n_layers)
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=10,
+                            moment_dtype=cfg.param_dtype)
+    one = model_zoo.build(cfg, arch.family)
+    like = steps.init_train_state(one, opt, torch.Generator(), "meta")
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch_n,
+                                             seed=seed))
+    batch = train.make_batch_fn(one, arch.family, pipe, seq, cuda)(0)
+    out = dict(arch="llama3-405b", policy=arch.parallelism, layers=n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab, act_dtype=str(cfg.act_dtype),
+               param_dtype=str(cfg.param_dtype), moment_dtype=str(opt.moment_dtype),
+               params=sum(t.numel() for t in tree_flatten(like.params)[1]),
+               state_bytes=sum(t.numel() * t.element_size() for t in tree_flatten(
+                   (like.params, like.opt.m, like.opt.v))[1]),
+               batch=batch_n, seq=seq, runs={})
+    t0 = time.perf_counter()
+    for m in (m_run, m_check):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held0 = torch.cuda.memory_allocated()
+        mesh = make_lm_mesh(m, device="cuda")
+        model = model_zoo.build(cfg, arch.family, mesh=mesh, policy=arch.parallelism)
+        t1 = time.perf_counter()
+        state = steps.init_train_state(model, opt, torch.Generator(device=cuda).manual_seed(seed))
+        torch.cuda.synchronize()
+        run = dict(model_parallel=m, init_s=time.perf_counter() - t1,
+                   held_state_bytes=torch.cuda.memory_allocated() - held0, shard_state_bytes=[])
+        specs = sharding.spec_leaves(like.params, state.params.specs)
+        full = tree_flatten(like.params)[1]
+        for j, c in enumerate(mesh.local):
+            want = 0
+            for t, sp in zip(full, specs):
+                n = int(np.prod([sharding.block_index(e, mesh.shape, c)[1] for e in sp] or [1]))
+                want += t.numel() * (t.element_size() + 2 * torch.empty(
+                    (), dtype=opt.moment_dtype).element_size()) // n
+            got = sum(sharding.shard_bytes(tree.shards[j])
+                      for tree in (state.params, state.opt.m, state.opt.v))
+            check(got == want, f"phase17 llama3-405b m={m}: shard {c} holds {got} state bytes, "
+                  f"its blocks {want}")
+            run["shard_state_bytes"].append(got)
+        step = steps.make_train_step(model, opt, 1, mesh=mesh, policy=arch.parallelism)
+        state, met, rec = _timed_step(step, state, batch)
+        run.update(metrics=met, tokens_per_s=batch_n * seq / (rec["step_ms"] / 1e3), **rec)
+        out["runs"][m] = run
+        del state, model, step
+    a, b = out["runs"][m_run]["metrics"], out["runs"][m_check]["metrics"]
+    out.update(loss_rel_err=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+               grad_norm_rel_err=abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"],
+               tol=LM_BF16_CARD_TOL, s=time.perf_counter() - t0)
+    check(out["loss_rel_err"] <= LM_BF16_CARD_TOL and out["grad_norm_rel_err"] <= LM_BF16_CARD_TOL,
+          f"phase17 llama3-405b: m={m_run} off m={m_check} by loss {out['loss_rel_err']}, "
+          f"gradient norm {out['grad_norm_rel_err']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _same_checkpoint(path: pathlib.Path, state, extra: dict, step: int) -> dict:
+    """The files of the checkpoint at ``path`` are the ones a one-card
+    ``Checkpointer.save(step, state, extra)`` writes: the same names, the
+    manifest, and each leaf's ``.npy`` (shape, dtype and every byte) as its
+    writer makes it (``np.save`` of the leaf's host copy), serialized in
+    memory rather than written to disk a second time."""
+    import io
+
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpointer as ckpt
+    from repro_torch.tree import tree_flatten
+
+    names, leaves = tree_flatten(state)
+    got = sorted(p.name for p in path.iterdir())
+    check(got == sorted([n + ".npy" for n in names] + [ckpt.MANIFEST, ckpt.COMMIT]),
+          f"phase17 elastic: checkpoint files {got} are not the one-card state's")
+    manifest = {"step": step, "extra": extra, "leaves": {}}
+    n_bytes = 0
+    for name, leaf in zip(names, leaves):
+        arr, dtype = ckpt._to_host(leaf)
+        manifest["leaves"][name] = {"shape": list(arr.shape), "dtype": dtype}
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        data = (path / f"{name}.npy").read_bytes()
+        check(data == buf.getvalue(), f"phase17 elastic: {name}'s bytes differ from a one-card "
+              "save's")
+        n_bytes += len(data)
+    check(json.loads((path / ckpt.MANIFEST).read_text()) == manifest,
+          "phase17 elastic: the manifest differs from a one-card save's")
+    return dict(files=len(got), bytes=n_bytes)
+
+
+def _mesh_train_elastic(seed: int) -> tuple[dict, list]:
+    """(d): the train CLI on qwen2-7b (``MESH_ELASTIC``): an uninterrupted
+    run at m1; the same run stopped by ``RunGuard`` after step ``stop``
+    with ``--ckpt-dir``, whose checkpoint equals a one-card save of the
+    state it holds; ``--resume`` at m2 to the end.  Returns the record and
+    the uninterrupted run's first two gradients (logical trees, for
+    (e))."""
+    import io
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    n_layers, m1, m2, stop, n_steps, batch, seq, lr = MESH_ELASTIC
+    argv = _train_argv("qwen2-7b", batch, seq, 1, n_steps, seed, "--lr", str(lr),
+                       "--log-every", "100", "--ckpt-every", "100")
+    out = dict(arch="qwen2-7b", layers=n_layers, act_dtype="float32", batch=batch, seq=seq,
+               steps=n_steps, stop=stop, model_parallel=[m1, m2], lr=lr)
+    t0 = time.perf_counter()
+    with _arch_cut(n_layers, act_dtype=torch.float32):
+        with _grads_seen(keep=2) as seen:
+            whole = train.run(argv + ["--model-parallel", str(m1)])
+        out.update(uninterrupted=whole["losses"], uninterrupted_s=time.perf_counter() - t0,
+                   step_ms=[1e3 * t for t in whole["step_s"]],
+                   tokens_per_s=batch * seq / float(np.median(whole["step_s"][1:])))
+        del whole
+        grads = [sharding.logical_tree(g) for g in seen]
+        del seen
+        make = train.make_batch_fn
+
+        def make_stopping(*a, **kw):
+            get = make(*a, **kw)
+
+            def stopping(step):
+                if step == stop - 1:
+                    signal.raise_signal(signal.SIGTERM)
+                return get(step)
+            return stopping
+
+        with tempfile.TemporaryDirectory() as d:
+            out["tmp_free_bytes"] = shutil.disk_usage(d).free
+            train.make_batch_fn = make_stopping
+            try:
+                cut = train.run(argv + ["--model-parallel", str(m1), "--ckpt-dir", d])
+            finally:
+                train.make_batch_fn = make
+            check(cut["stopped"] and len(cut["losses"]) == stop,
+                  f"phase17 elastic: the guard stopped after {len(cut['losses'])} steps")
+            losses = list(cut["losses"])
+            del cut
+            arch = train.get_config("qwen2-7b")
+            opt = adamw.AdamWConfig(lr=lr, warmup_steps=min(50, n_steps), total_steps=n_steps)
+            like = steps.init_train_state(steps.build_model(arch), opt, torch.Generator(), "meta")
+            t1 = time.perf_counter()
+            ck = Checkpointer(d)
+            state, extra = ck.restore(stop, like, device="cpu")
+            ck.close()
+            out["checkpoint"] = _same_checkpoint(pathlib.Path(d) / f"step_{stop:08d}", state,
+                                                 extra, stop)
+            out["checkpoint"]["compare_s"] = time.perf_counter() - t1
+            del state
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rest = train.run(argv + ["--model-parallel", str(m2), "--ckpt-dir", d,
+                                         "--resume"])
+            log(buf.getvalue().rstrip())
+            losses += rest["losses"]
+            out["resumed_step_ms"] = [1e3 * t for t in rest["step_s"]]
+            del rest
+    check(f"resumed from step {stop} onto LMMesh(data=1, model={m2}" in buf.getvalue(),
+          "phase17 elastic: no 'resumed from step' line onto the new mesh")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, out["uninterrupted"]))
+    out.update(losses=losses, max_rel_err=rel, tol=MESH_ELASTIC_RTOL,
+               s=time.perf_counter() - t0)
+    check(len(losses) == n_steps and rel <= MESH_ELASTIC_RTOL,
+          f"phase17 elastic: losses {losses} off the uninterrupted run's "
+          f"{out['uninterrupted']} by {rel}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, grads
+
+
+def _mesh_compress(grads: list) -> dict:
+    """(e): ``compressed_psum`` over ``make_lm_mesh(2, data=2)`` of two
+    gradient trees, one a data coordinate, each shard holding its `model`
+    blocks (``fsdp``'s rules with the data axis taken out): the mean "none"
+    exact, "bf16" within one bfloat16 ulp of the larger input, "int8" within
+    one int8 step of the larger scale; each residual exactly ``g32 -
+    decompress(compress(g32))``; ``wire_bytes`` its element count times 4 /
+    2 / 1."""
+    import torch
+
+    from repro_torch.distributed import compression, sharding
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.tree import tree_leaves, tree_unflatten
+
+    t0 = time.perf_counter()
+    mesh = make_lm_mesh(2, data=2, device="cuda")
+    specs = sharding.rest_tree(grads[0], sharding.param_specs(grads[0], mesh.shape, "dense",
+                                                              "fsdp"), ("data",))
+    spec_l = sharding.spec_leaves(grads[0], specs)
+    trees = [tree_unflatten(grads[0], [sharding.shard(t, sp, mesh.shape, c) for t, sp in
+                                       zip(tree_leaves(grads[c["data"]]), spec_l)])
+             for c in mesh.local]
+    n_elem = sum(t.numel() for t in tree_leaves(trees[0]))
+    out = dict(mesh="data 2 x model 2", elements_a_shard=n_elem, methods={})
+    for method in ("none", "bf16", "int8"):
+        ef = compression.ef_init(trees)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        means, new = compression.compressed_psum(trees, ef, mesh, "data", method)
+        torch.cuda.synchronize()
+        rec = dict(ms=1e3 * (time.perf_counter() - t1), max_err_over_bound=0.0)
+        for j, c in enumerate(mesh.local):
+            k = 2 * (1 - c["data"]) + c["model"]        # the other data coordinate's shard
+            for a, b, got, res in zip(tree_leaves(trees[j]), tree_leaves(trees[k]),
+                                      tree_leaves(means[j]), tree_leaves(new.residual[j])):
+                first, second = (a, b) if c["data"] == 0 else (b, a)
+                exact = (first.float() + second.float()) / 2
+                err = (got.float() - exact).abs()
+                big = torch.maximum(a.abs(), b.abs()).float()
+                if method == "none":
+                    check(torch.equal(got, exact), "phase17 compression: 'none' is not the mean")
+                    continue
+                if method == "bf16":
+                    bound = torch.exp2(torch.floor(torch.log2(big)) - 7)     # one ulp
+                else:
+                    bound = torch.maximum(a.abs().max(), b.abs().max()).float() / 127.0
+                check(bool((err <= bound).all()),
+                      f"phase17 compression {method}: mean off by {float(err.max())}")
+                over = err / torch.clamp(bound, min=torch.finfo(torch.float32).tiny)
+                rec["max_err_over_bound"] = max(rec["max_err_over_bound"], float(over.max()))
+                g32 = a.float()
+                deq = (compression.decompress_bf16(compression.compress_bf16(g32))
+                       if method == "bf16" else
+                       compression.decompress_int8(*compression.compress_int8(g32)))
+                check(torch.equal(res, g32 - deq),
+                      f"phase17 compression {method}: the residual is not g32 - decompress")
+        per = {"none": 4, "bf16": 2, "int8": 1}[method]
+        rec["wire_bytes"] = compression.wire_bytes(trees[0], method)
+        check(rec["wire_bytes"] == n_elem * per,
+              f"phase17 compression {method}: wire_bytes {rec['wire_bytes']} != {n_elem * per}")
+        out["methods"][method] = rec
+        del means, new, ef
+    out["s"] = time.perf_counter() - t0
+    del trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_train_mesh(seed: int) -> dict:
+    """Phase 17: LM training on the ("data", "model") mesh:
+    ``_mesh_train_parity`` for each of ``MESH_TRAIN_PARITY`` (a, b),
+    ``_mesh_train_tp`` (c), ``_mesh_train_elastic`` (d) and
+    ``_mesh_compress`` on (d)'s gradients (e).  The launch counters are set
+    to 0 before each run and read after it: training on the mesh launches
+    none of the port's kernels.  The shards run one after another on one
+    card, so the times say nothing of the speed on several cards."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "runs": {}}
+
+    def path(name: str, fn):
+        kernels.reset_launch_counts()
+        rec = fn()
+        launches = _path_launches(f"phase17 {name}", ())
+        check(not any(launches.values()), f"phase17 {name}: training launched {launches}")
+        out["launches"][name] = launches
+        log(f"phase17 {name}", json.dumps(rec))
+        out["runs"][name] = rec
+
+    for arch_id, n_layers, m, nccl, ep in MESH_TRAIN_PARITY:
+        path(arch_id, lambda: _mesh_train_parity(arch_id, n_layers, m, nccl, ep, seed))
+    path("llama3-405b", lambda: _mesh_train_tp(seed))
+    held = {}
+
+    def elastic():
+        rec, held["grads"] = _mesh_train_elastic(seed)
+        return rec
+
+    path("elastic", elastic)
+    path("compression", lambda: _mesh_compress(held.pop("grads")))
+    out["s"] = time.perf_counter() - t0
+    return out
+
 
 def _sites(replaces: tuple) -> str:
     """``a.py:1`` and ``a.py:2`` as ``a.py:1 and :2``."""
@@ -4204,6 +4739,14 @@ def main() -> int:
     lm_mesh = phase_lm_mesh(args.seed)
     log("phase16 s", round(time.perf_counter() - t0, 3))
 
+    # phase 17 after phase 16's models are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase17 held before", torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    train_mesh = phase_lm_train_mesh(args.seed)
+    log("phase17 s", round(time.perf_counter() - t0, 3))
+
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
     # launches are read from
@@ -4281,6 +4824,8 @@ def main() -> int:
         row.update(phase15_launches={k: v[counter] for k, v in trained["launches"].items()})
         # phase 16: LM serving on the mesh (none)
         row.update(phase16_launches={k: v[counter] for k, v in lm_mesh["launches"].items()})
+        # phase 17: LM training on the mesh (none)
+        row.update(phase17_launches={k: v[counter] for k, v in train_mesh["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

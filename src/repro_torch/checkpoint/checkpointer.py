@@ -13,8 +13,12 @@ The newest ``keep`` committed checkpoints are kept.
 
 numpy has no bfloat16: a bfloat16 leaf is stored bit for bit as uint16
 and its manifest entry says ``bfloat16``.  ``restore`` places each leaf on
-its ``like`` leaf's device (or on ``device``); the reference's
-``shard_fn`` (elastic re-sharding onto a mesh) belongs to multi-card work.
+its ``like`` leaf's device (or on ``device``), or hands it to the
+reference's ``shard_fn`` (``distributed.elastic.restore_to_mesh`` cuts it
+onto an LM mesh there).  A state on a mesh is saved as its logical arrays
+under the one-card state's names (``sharding.logical_tree``), as the
+reference's ``device_get`` of sharded arrays saves them: a checkpoint
+taken on any mesh is the one-card checkpoint of the same state.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import logical_tree
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 COMMIT = "COMMIT"
@@ -64,10 +69,12 @@ class Checkpointer:
     def save(self, step: int, tree: Any, extra: dict | None = None,
              blocking: bool = False) -> None:
         """Snapshot ``tree`` to host memory now; write it to disk on the
-        background thread (before returning with ``blocking``)."""
+        background thread (before returning with ``blocking``).  Each
+        ``MeshParams`` in ``tree`` is saved logical (a gather: on a process
+        group every rank makes it, ``sharding.logical_tree``)."""
         if self._error:
             raise self._error
-        names, leaves = tree_flatten(tree)
+        names, leaves = tree_flatten(logical_tree(tree))
         host = [_to_host(t) for t in leaves]
         self._q.put((step, names, host, extra or {}))
         if blocking:
@@ -134,12 +141,13 @@ class Checkpointer:
         steps = self.committed_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, like: Any, device=None):
+    def restore(self, step: int, like: Any, shard_fn=None, device=None):
         """The checkpoint of ``step`` in the structure of ``like`` (a tree of
         tensors, or of anything with ``shape`` and ``dtype``): each leaf in
-        its stored dtype on ``device`` (default: the ``like`` leaf's).  A
-        leaf whose shape or dtype differs from ``like``'s raises.  Returns
-        (tree, extra)."""
+        its stored dtype on ``device`` (default: the ``like`` leaf's), or
+        ``shard_fn(name, tensor)`` of the leaf as a host tensor where one is
+        given (elastic restore).  A leaf whose shape or dtype differs from
+        ``like``'s raises.  Returns (tree, extra)."""
         path = os.path.join(self.dir, f"step_{step:08d}")
         if not os.path.exists(os.path.join(path, COMMIT)):
             raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -153,5 +161,8 @@ class Checkpointer:
             if tuple(t.shape) != tuple(leaf.shape) or t.dtype != leaf.dtype:
                 raise ValueError(f"leaf {name}: checkpoint {tuple(t.shape)} {t.dtype} != "
                                  f"{tuple(leaf.shape)} {leaf.dtype}")
-            out.append(t.to(device if device is not None else leaf.device))
+            if shard_fn is not None:
+                out.append(shard_fn(name, t))
+            else:
+                out.append(t.to(device if device is not None else leaf.device))
         return tree_unflatten(like, out), manifest["extra"]

@@ -17,7 +17,7 @@ from repro_torch.core.hashprune import Reservoir
 from repro_torch.core.pipnn import PiPNNIndex, PiPNNParams
 from repro_torch.core.serving import ServingIndex
 from repro_torch.device import resolve_device
-from repro_torch.launch.steps import TrainState
+from repro_torch.launch.steps import TrainState, shard_train_state
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -86,18 +86,22 @@ def lm_to_arrays(tree: dict) -> dict:
     return {k: stack(v) if k in STACKED else tree_np(v) for k, v in tree.items()}
 
 
-def train_state_from_arrays(params: dict, opt, *, device=None):
+def train_state_from_arrays(params: dict, opt, *, device=None, mesh=None, family: str = "",
+                            policy: str = "fsdp_tp"):
     """The port's ``launch.steps.TrainState`` from the reference's, given
     as numpy arrays: ``params`` through ``lm_from_arrays``, ``opt`` (its
     AdamW state: ``step``, ``m``, ``v``, in that order) with the moments
-    split the same way and the step an int32 scalar."""
-    dev = resolve_device(device)
+    split the same way and the step an int32 scalar.  With ``mesh`` (an
+    ``LMMesh``) the state is cut onto it under ``family``'s ``policy``
+    rules (``steps.shard_train_state``) on ``mesh.device``."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     step, m, v = opt
-    return TrainState(params=lm_from_arrays(params, device=dev),
-                      opt=AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
-                                                       device=dev),
-                                     m=lm_from_arrays(m, device=dev),
-                                     v=lm_from_arrays(v, device=dev)))
+    state = TrainState(params=lm_from_arrays(params, device=dev),
+                       opt=AdamWState(step=torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                                        device=dev),
+                                      m=lm_from_arrays(m, device=dev),
+                                      v=lm_from_arrays(v, device=dev)))
+    return state if mesh is None else shard_train_state(state, mesh, family, policy)
 
 
 def index_from_arrays(graph, dists, start: int, *, metric: str = "l2",

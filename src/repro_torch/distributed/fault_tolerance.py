@@ -19,7 +19,8 @@ that dies is not survived: the shard failures here are simulated, as in
 the reference.
 
 ``resume_or_init`` restores a trainer's newest committed checkpoint
-(``checkpoint.Checkpointer``) or initializes it fresh.
+(``checkpoint.Checkpointer``; onto a mesh through a given ``restore``) or
+initializes it fresh.
 """
 from __future__ import annotations
 
@@ -105,12 +106,17 @@ class RollingPercentile:
 
 
 def resume_or_init(checkpointer, init_fn: Callable[[], Any], like_fn: Callable[[], Any],
-                   device=None) -> tuple[Any, int, dict]:
+                   device=None, restore: Callable | None = None) -> tuple[Any, int, dict]:
     """Restore the newest committed checkpoint into ``like_fn()``'s
-    structure (on ``device``, default each like leaf's), or ``init_fn()``
-    when there is none.  Returns (state, start_step, extra)."""
+    structure, or ``init_fn()`` when there is none.  ``restore(step,
+    like) -> (state, extra)`` reads it (``elastic.restore_to_mesh`` onto a
+    mesh); by default ``checkpointer.restore`` on ``device`` (default each
+    like leaf's).  Returns (state, start_step, extra)."""
     latest = checkpointer.latest_step()
     if latest is None:
         return init_fn(), 0, {}
-    state, extra = checkpointer.restore(latest, like_fn(), device=device)
+    if restore is None:
+        state, extra = checkpointer.restore(latest, like_fn(), device=device)
+    else:
+        state, extra = restore(latest, like_fn())
     return state, latest, extra

@@ -25,6 +25,17 @@ back together, and ``shard_params`` / ``unshard_params`` do so for a
 parameter tree on an ``launch.mesh.LMMesh``.  The reference's
 ``params_shardings``, ``batch_shardings`` and ``cache_shardings`` build
 jax ``NamedSharding``s and have no counterpart beyond ``param_specs``.
+
+Training on the mesh (the last section): a leaf whose spec splits nothing
+is one tensor that every local shard refers to, so autograd sums its
+gradient over the local shards; a leaf split over some axes but
+replicated over others is held as one copy a coordinate of those others.
+``reduce_replicated`` sums each block's gradient over the axes its spec
+does not split, counting a shared tensor once, so every copy ends with
+the logical gradient; ``global_norm`` counts each logical element once;
+``distinct_leaves`` lists each shared tensor once (the optimizer steps it
+once).  ``logical_tree`` turns a mesh state back into the one-card tree
+(a checkpoint), and ``Laid`` is a batch leaf cut onto the mesh.
 """
 from __future__ import annotations
 
@@ -259,9 +270,10 @@ def block_index(entry, mesh, coord: dict) -> tuple[int, int]:
 
 
 def shard(tensor: torch.Tensor, spec: tuple, mesh, coord: dict) -> torch.Tensor:
-    """The block of ``tensor`` the shard at ``coord`` holds under ``spec``
-    (a contiguous copy where it is a part, the tensor itself where the spec
-    splits nothing)."""
+    """The block of ``tensor`` the shard at ``coord`` holds under ``spec``:
+    a copy with its own storage where it is a part (never a view, so an
+    update in place of one shard's block writes no other's), the tensor
+    itself where the spec splits nothing."""
     if len(spec) not in (0, tensor.dim()):
         raise ValueError(f"spec {spec} does not fit a tensor of shape {tuple(tensor.shape)}")
     out = tensor
@@ -273,7 +285,7 @@ def shard(tensor: torch.Tensor, spec: tuple, mesh, coord: dict) -> torch.Tensor:
         if size % n:
             raise ValueError(f"dim {dim} of {size} does not divide into {n} blocks ({spec})")
         out = out.narrow(dim, idx * (size // n), size // n)
-    return out if out is tensor else out.contiguous()
+    return out if out is tensor else out.clone(memory_format=torch.contiguous_format)
 
 
 def coords(mesh) -> list[dict]:
@@ -421,3 +433,103 @@ def unshard_params(mp: MeshParams) -> dict:
 def shard_bytes(tree) -> int:
     """The bytes of one shard's tree of blocks."""
     return sum(t.numel() * t.element_size() for t in tree_flatten(tree)[1])
+
+
+# ---------------------------------------------------------------------------
+# Training on a mesh
+# ---------------------------------------------------------------------------
+
+def split_axes(spec: tuple) -> set:
+    """The mesh axes a spec splits some dimension over."""
+    return {a for entry in spec for a in axes_of(entry)}
+
+
+def distinct_leaves(mp: MeshParams):
+    """(the distinct tensors of ``mp``'s local shards, each shared tensor
+    once, in the order of the shards' leaves; ``rebuild(tensors)``: a
+    ``MeshParams`` of ``mp``'s specs holding ``tensors`` in their places,
+    shared as ``mp``'s are)."""
+    index, uniq, where = {}, [], []
+    for tree in mp.shards:
+        w = []
+        for t in tree_flatten(tree)[1]:
+            if id(t) not in index:
+                index[id(t)] = len(uniq)
+                uniq.append(t)
+            w.append(index[id(t)])
+        where.append(w)
+
+    def rebuild(tensors) -> MeshParams:
+        return mp._replace(shards=[tree_unflatten(tree, [tensors[i] for i in w])
+                                   for tree, w in zip(mp.shards, where)])
+    return uniq, rebuild
+
+
+def _each_once(parts: list, fn) -> list:
+    memo = {}
+    return [memo[id(p)] if id(p) in memo else memo.setdefault(id(p), fn(p)) for p in parts]
+
+
+def reduce_replicated(grads: list, mesh, specs) -> list:
+    """Each block's gradient summed over the mesh axes its spec does not
+    split (in float32, back to its dtype), a tensor that local shards share
+    counted once, so every copy of a block holds the logical gradient.
+    ``grads`` holds one tree a local shard (``specs``' structure)."""
+    flat = [tree_flatten(t)[1] for t in grads]
+    cols = []
+    for i, spec in enumerate(spec_leaves(grads[0], specs)):
+        parts = [f[i] for f in flat]
+        axes = [a for a in mesh.shape.axis_names
+                if a not in split_axes(spec) and mesh.shape.shape[a] > 1]
+        if axes:
+            dtype = parts[0].dtype
+            parts = _each_once(parts, lambda t: t.float())
+            for a in axes:
+                parts = mesh.psum_distinct(parts, a)
+            parts = _each_once(parts, lambda t: t.to(dtype))
+        cols.append(parts)
+    return [tree_unflatten(tree, [col[j] for col in cols]) for j, tree in enumerate(grads)]
+
+
+def global_norm(blocks: list, specs, mesh) -> torch.Tensor:
+    """The float32 L2 norm of the logical tree whose blocks the local
+    shards hold (one tree a local shard): each shard sums the squares of
+    its blocks, a block replicated over some axes only at coordinate 0 of
+    them, and the sums are summed over the mesh."""
+    spec_l = spec_leaves(blocks[0], specs)
+    parts = []
+    for tree, c in zip(blocks, mesh.local):
+        total = torch.zeros((), dtype=torch.float32, device=tree_flatten(tree)[1][0].device)
+        for t, spec in zip(tree_flatten(tree)[1], spec_l):
+            if all(c[a] == 0 for a in mesh.shape.axis_names if a not in split_axes(spec)):
+                total = total + torch.sum(torch.square(t.float()))
+        parts.append(total)
+    return torch.sqrt(mesh.psum(mesh.psum(parts, "model"), "data")[0])
+
+
+@torch.no_grad()
+def logical_tree(tree):
+    """``tree`` (a dict, list or NamedTuple such as a train state) with
+    each ``MeshParams`` in it replaced by its full tree
+    (``unshard_params``: a gather on every rank, so every rank calls it)."""
+    if isinstance(tree, MeshParams):
+        return unshard_params(tree)
+    if isinstance(tree, dict):
+        return {k: logical_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[logical_tree(v) for v in tree])
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(logical_tree(v) for v in tree)
+    return tree
+
+
+class Laid(NamedTuple):
+    """A batch leaf laid out on an LM mesh: ``parts[j]`` local shard j's
+    block under ``spec`` (the counterpart of a leaf pinned to a
+    ``NamedSharding``)."""
+    parts: list
+    spec: tuple
+
+    def micro(self, i: int) -> "Laid":
+        """Microbatch ``i`` of a leaf stacked [n_micro, ...]."""
+        return Laid([p[i] for p in self.parts], self.spec[1:])

@@ -36,6 +36,20 @@ CPU tests use).
 The SPMD contract: every rank calls every method in the same order with
 parts of the same shapes, so every argument that can raise is checked
 before the first collective, on every rank alike.
+
+The LM mesh (``LMMesh``) trains through its exchanges.  In one process
+they are the list functions above, so autograd runs through them as
+through any torch op.  Over a process group the collectives record no
+graph, and each exchange that a graph runs through is an
+``autograd.Function`` with its conjugate: the gradient of a train loss
+that is the sum of every shard's part (each shard's tokens counted once,
+``models.transformer.mesh_loss_fn``) is, for ``all_gather``, the
+gradients of every consumer of the gathered tensor summed over the line
+and cut back to each part (a reduce-scatter, here an ``all_reduce`` and a
+slice: gloo has no reduce-scatter); for ``psum``, the consumers'
+gradients summed over the line, given to each part; for ``all_to_all``,
+the reverse ``all_to_all``.  Every rank runs the same graph, so the
+backward runs the collectives in one order on every rank.
 """
 from __future__ import annotations
 
@@ -253,6 +267,67 @@ def init_mesh(n_shards: int, device=None, *, store=None, rank: int | None = None
 
 
 # ---------------------------------------------------------------------------
+# Exchanges over a process group that autograd runs through
+# ---------------------------------------------------------------------------
+
+def _recording(line) -> bool:
+    return torch.is_grad_enabled() and any(p.requires_grad for p in line)
+
+
+def _all_reduce(t: torch.Tensor, sm: ShardMesh) -> torch.Tensor:
+    t = t.contiguous().clone()
+    dist.all_reduce(t, group=sm.group)
+    return t
+
+
+class _Gather(torch.autograd.Function):
+    """``all_gather`` of a line's local parts along ``dim``; backward: the
+    gathered tensor's gradient summed over the line's ranks, each local
+    part's slice."""
+
+    @staticmethod
+    def forward(ctx, sm: ShardMesh, dim: int, *line):
+        ctx.sm, ctx.dim, ctx.size = sm, dim, line[0].shape[dim]
+        return sm.all_gather([p.movedim(dim, 0) for p in line]).movedim(0, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _all_reduce(grad, ctx.sm)
+        return (None, None) + tuple(total.narrow(ctx.dim, i * ctx.size, ctx.size)
+                                    for i in ctx.sm.local)
+
+
+class _Psum(torch.autograd.Function):
+    """``psum`` of a line's local parts; backward: the result's gradient
+    summed over the line's ranks, given to every local part."""
+
+    @staticmethod
+    def forward(ctx, sm: ShardMesh, *line):
+        ctx.sm, ctx.n = sm, len(line)
+        return sm.psum(list(line))
+
+    @staticmethod
+    def backward(ctx, grad):
+        total = _all_reduce(grad, ctx.sm)
+        return (None,) + (total,) * ctx.n
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` of a line's local sends; backward: the reverse
+    ``all_to_all`` of the receivers' gradients (the exchange is its own
+    transpose)."""
+
+    @staticmethod
+    def forward(ctx, sm: ShardMesh, *sends):
+        ctx.sm = sm
+        return tuple(sm.all_to_all(list(sends)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None,) + tuple(ctx.sm.all_to_all([g.contiguous() for g in grads]))
+
+
+# ---------------------------------------------------------------------------
 # The LM mesh: ("data", "model")
 # ---------------------------------------------------------------------------
 
@@ -274,7 +349,9 @@ class LMMesh:
 
     The exchanges take and return one tensor a local shard, in the order of
     ``local``; in one process the shards of a line share the result of a
-    gather or a sum (one tensor, not copies)."""
+    gather or a sum (one tensor, not copies), so autograd sums the
+    gradients of the line's consumers there, as the process group's
+    conjugates (``_Gather``, ``_Psum``) sum them over the ranks."""
 
     def __init__(self, data: int, model: int, *, group=None, rank: int = 0, world: int = 1,
                  device=None, line_groups: dict | None = None):
@@ -339,13 +416,40 @@ class LMMesh:
             if sm.group is None:
                 observe(sm, "all_gather", line)
                 return torch.cat(line, dim)
+            if _recording(line):
+                return _Gather.apply(sm, dim, *line)
             return sm.all_gather([p.movedim(dim, 0) for p in line]).movedim(0, dim).contiguous()
         return self._each_line(axis, parts, gather)
 
     def psum(self, parts: list, axis: str) -> list:
         """The parts summed over each shard's line of ``axis``."""
-        return self._each_line(axis, parts,
-                               lambda sm, line: line[0] if sm.n_shards == 1 else sm.psum(line))
+        def line_sum(sm, line):
+            if sm.n_shards == 1:
+                return line[0]
+            if sm.group is not None and _recording(line):
+                return _Psum.apply(sm, *line)
+            return sm.psum(line)
+        return self._each_line(axis, parts, line_sum)
+
+    def psum_distinct(self, parts: list, axis: str) -> list:
+        """``psum`` where a tensor that several shards of a line share (one
+        object) counts once: a gradient that autograd has already summed
+        over the local shards sharing its parameter.  No graph."""
+        def line_sum(sm, line):
+            if sm.n_shards == 1:
+                return line[0]
+            uniq = list({id(p): p for p in line}.values())
+            return psum(uniq) if sm.group is None else sm.psum(uniq)
+        return self._each_line(axis, parts, line_sum)
+
+    def total(self, value: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of a value each rank holds (itself in one
+        process).  No graph."""
+        if self.group is None:
+            return value
+        out = value.detach().contiguous().clone()
+        dist.all_reduce(out, group=self.group)
+        return out
 
     def all_to_all(self, sends: list, axis: str = "model") -> list:
         """Each shard's [n_axis, cap, ...] buffer out along ``axis``; each
@@ -357,7 +461,9 @@ class LMMesh:
         out = [None] * len(sends)
         for sm, idxs in self._lines[axis]:
             got = [sends[j] for j in idxs]
-            if sm.n_shards > 1:
+            if sm.n_shards > 1 and sm.group is not None and _recording(got):
+                got = list(_AllToAll.apply(sm, *got))
+            elif sm.n_shards > 1:
                 got = sm.all_to_all(got)
             for j, g in zip(idxs, got):
                 out[j] = g

@@ -16,15 +16,25 @@ reduced config of the same family, which also trains on the CPU with
     and ``StepWatchdog`` straggler flagging.
 
 The device is the card unless ``--device`` names another; without a card
-it raises.  ``--model-parallel`` above 1 (tensor parallelism over cards)
-and the reference's restore onto another mesh are not ported
-(ROADMAP.md section 1).
+it raises.  ``--model-parallel m`` above 1 trains the transformer family
+on the one-process LM mesh ``make_lm_mesh(m)`` (data 1, model m; all
+shards on the one device) under the arch's policy, as
+``Server(model_parallel=m)`` serves it; ``run(argv, mesh=)`` takes an
+``LMMesh`` made by the caller instead (``init_lm_mesh`` over a process
+group: rank 0 writes the checkpoints).  Checkpoints are saved logical, so
+``--resume`` restores the newest onto the current mesh whatever mesh
+wrote it (``elastic.restore_to_mesh``).  The ssm, hybrid and encdec
+families on a mesh are not ported (ROADMAP.md section 1).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
       --steps 50 --batch 16 --seq 128 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m --smoke \\
       --steps 20 --ckpt-dir /tmp/ck --resume --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
+      --model-parallel 2 --steps 20 --ckpt-dir /tmp/ckm --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
+      --model-parallel 4 --steps 40 --ckpt-dir /tmp/ckm --resume --device cpu
 """
 from __future__ import annotations
 
@@ -39,8 +49,11 @@ from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.data import TokenPipeline, TokenPipelineConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import elastic
 from repro_torch.distributed.fault_tolerance import RunGuard, StepWatchdog, resume_or_init
+from repro_torch.distributed.sharding import logical_tree
 from repro_torch.launch import steps
+from repro_torch.launch.mesh import make_lm_mesh
 from repro_torch.optim import adamw
 
 
@@ -88,34 +101,46 @@ def parse_args(argv=None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def run(argv=None) -> dict:
+def run(argv=None, mesh=None) -> dict:
     """Train as ``main`` does and return the run's record: ``losses``,
     ``grad_norms``, ``lrs``, ``step_s`` (the seconds of each step run), ``start_step``,
     ``stopped`` (the guard's stop), ``flagged`` (straggler steps) and the
-    final ``state``."""
+    final ``state`` (on a mesh: ``MeshParams`` of this rank's blocks).
+    ``mesh`` (an ``LMMesh``) replaces ``--model-parallel``'s one-process
+    mesh; every rank of its group runs ``run`` alike."""
     args = parse_args(argv)
-    if args.model_parallel != 1:
-        raise NotImplementedError(
-            f"--model-parallel {args.model_parallel}: training with tensor parallelism over "
-            "a mesh is not ported yet (serving is: launch/serve.py); see ROADMAP.md section 1")
-    dev = resolve_device(args.device)
     arch = get_config(args.arch)
-    model = steps.build_model(arch, smoke=args.smoke)
+    if mesh is not None:
+        if args.model_parallel not in (1, mesh.model):
+            raise ValueError(f"--model-parallel {args.model_parallel} disagrees with {mesh}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+        if args.model_parallel != 1:
+            mesh = make_lm_mesh(args.model_parallel, device=dev)
+    model = steps.build_model(arch, smoke=args.smoke, mesh=mesh)
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=min(50, args.steps),
                                 total_steps=args.steps)
-    train_step = steps.make_train_step(model, opt_cfg, args.micro)
+    train_step = steps.make_train_step(model, opt_cfg, args.micro, mesh=mesh,
+                                       policy=arch.parallelism)
     pipe = TokenPipeline(TokenPipelineConfig(vocab=model.config.vocab, seq_len=args.seq,
                                              global_batch=args.batch, seed=args.seed))
     get_batch = make_batch_fn(model, arch.family, pipe, args.seq, dev)
+    one_card = model if mesh is None else steps.build_model(arch, smoke=args.smoke)
 
     def init_fn():
         gen = torch.Generator(device=dev).manual_seed(args.seed)
         return steps.init_train_state(model, opt_cfg, gen, dev)
 
-    def like_fn():   # the state's structure, shapes and dtypes; no memory
-        return steps.init_train_state(model, opt_cfg, torch.Generator(), "meta")
+    def like_fn():   # the one-card state's structure, shapes and dtypes; no memory
+        return steps.init_train_state(one_card, opt_cfg, torch.Generator(), "meta")
 
     ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
+    restore = None
+    if mesh is not None:
+        def restore(step, like):
+            return elastic.restore_to_mesh(ckpt, step, like, mesh, arch.family, arch.parallelism)
+    writer = mesh is None or mesh.rank == 0
     guard = RunGuard()
     watchdog = StepWatchdog(on_straggler=lambda s, t, mu: print(
         f"[watchdog] step {s} took {t:.2f}s (mean {mu:.2f}s) — straggler flagged", flush=True))
@@ -123,11 +148,13 @@ def run(argv=None) -> dict:
     try:
         start_step = 0
         if ckpt and args.resume:
-            state, start_step, extra = resume_or_init(ckpt, init_fn, like_fn, device=dev)
+            state, start_step, extra = resume_or_init(ckpt, init_fn, like_fn, device=dev,
+                                                      restore=restore)
             if start_step:
                 # the optimizer's step lives in the state; the data resumes by counter
                 start_step = int(extra.get("step", start_step))
-                print(f"resumed from step {start_step} onto {dev}", flush=True)
+                print(f"resumed from step {start_step} onto {dev if mesh is None else mesh}",
+                      flush=True)
         else:
             state = init_fn()
         rec["start_step"] = start_step
@@ -146,7 +173,11 @@ def run(argv=None) -> dict:
                       f"lr {rec['lrs'][-1]:.2e} {dt * 1e3:7.1f}ms", flush=True)
             if ckpt and ((step + 1) % args.ckpt_every == 0 or guard.should_stop
                          or step == args.steps - 1):
-                ckpt.save(step + 1, state, extra={"step": step + 1}, blocking=guard.should_stop)
+                logical = logical_tree(state)    # on a process group: a gather on every rank
+                if writer:
+                    ckpt.save(step + 1, logical, extra={"step": step + 1},
+                              blocking=guard.should_stop)
+                del logical
             if guard.should_stop:
                 rec["stopped"] = True
                 print(f"preemption requested: checkpointed at step {step + 1}, exiting cleanly",

@@ -80,8 +80,7 @@ def _build_on_mesh(cfg: Any, family: str, mesh, policy: str) -> Model:
         return transformer.mesh_decode_step(params, cfg, token, cache)
 
     def loss(params, batch):
-        raise NotImplementedError("training on a mesh is not ported yet; see ROADMAP.md "
-                                  "section 1")
+        return transformer.mesh_loss_fn(params, cfg, batch)
 
     return Model(family=family, config=cfg, init=init, forward=forward, loss_fn=loss,
                  prefill=prefill, decode_step=decode,

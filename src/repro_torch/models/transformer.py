@@ -10,9 +10,10 @@ the model loops over it.  The KV cache keeps the reference's stacked
 ``forward`` and ``loss_fn`` record autograd graphs; with ``remat`` they
 checkpoint each layer (or each group of ``remat_group`` layers) while
 autograd records, as the reference's ``jax.checkpoint``.  ``prefill`` and
-``decode_step`` build no graph.  ``mesh_forward``, ``mesh_prefill`` and
-``mesh_decode_step`` run the same model on an LM mesh (the section at the
-end says how each policy lays it out), for serving.
+``decode_step`` build no graph.  ``mesh_forward``, ``mesh_loss_fn``,
+``mesh_prefill`` and ``mesh_decode_step`` run the same model on an LM mesh
+(the section at the end says how each policy lays it out): the first two
+record graphs for training, the last two serve.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (MeshParams, axes_of, batch_spec, block_index,
-                                              gather, gather_tree, rest_tree)
+from repro_torch.distributed.sharding import (Laid, MeshParams, axes_of, batch_spec,
+                                              block_index, gather, gather_tree, rest_tree)
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnConfig, Params
 from repro_torch.models.moe import (EXPERT_STACKS, moe_apply, moe_apply_ep, moe_apply_mesh,
@@ -270,6 +271,16 @@ def decode_step(params: Params, cfg: TransformerConfig, token: torch.Tensor, cac
 #     over `model` (``MeshLogits``).  A dimension the split does not divide
 #     is replicated (``_maybe``), and its product runs whole on every shard.
 #
+# In training (``mesh_forward``, ``mesh_loss_fn``) a checkpointed layer
+# (``remat``) covers its weight gather: the backward gathers the layer
+# again instead of keeping every layer's gathered weights alive, which is
+# what ``fsdp`` is for.  The loss counts each token once: every shard's
+# mean over its rows weighs 1 / (data x model), and shards that share rows
+# (the `model` line under ``fsdp_tp``; any axis the batch does not divide)
+# share that weight, so the local shards holding one gathered logits
+# tensor add its cross entropy once.  Under ``fsdp_tp`` the tied
+# unembedding's logits, split on V, are gathered over `model` first.
+#
 # The KV cache is one tensor a local shard, [L, B_shard, S, KV_shard, hd]:
 # the shard's batch rows and the KV heads its q heads read (whole heads),
 # the full sequence.  Where KV is a multiple of `model` that is 1/model of
@@ -458,36 +469,50 @@ def _mesh_unembed(mp: MeshParams, cfg: TransformerConfig, xs: list, b_ax) -> Mes
     return MeshLogits(parts, (b_ax, "model" if _on_model(rest["table"][0]) else None), mesh)
 
 
-def _mesh_inputs(mp: MeshParams, tokens: torch.Tensor, positions):
-    """(b_ax, rows, each shard's tokens, each shard's positions [B_j, T] or
-    [3, B_j, T]) of the global batch."""
-    b, t = tokens.shape
-    b_ax = batch_spec("tokens", tokens, mp.mesh.shape, mp.policy)[0]
-    rows = _rows(mp.mesh, b_ax, b)
-    toks = [tokens[r] for r in rows]
-    if positions is None:
-        pos = [L.token_positions(tk.shape[0], t, tokens.device) for tk in toks]
+def _shard_batch(mp: MeshParams, batch: dict):
+    """(the batch entry, each leaf of ``batch`` as one part a local shard:
+    a ``Laid`` leaf's parts, a tensor's rows under ``batch_spec``), with
+    the text positions (``arange``, [B_j, T]) where the batch has none."""
+    batch = {k: v for k, v in batch.items() if v is not None}
+    tokens = batch["tokens"]
+    if isinstance(tokens, Laid):
+        b_ax = tokens.spec[0]
+        parts = {k: v.parts for k, v in batch.items()}
     else:
-        pos = [positions[..., r, :] for r in rows]
-    return b_ax, rows, toks, pos
+        b_ax = batch_spec("tokens", tokens, mp.mesh.shape, mp.policy)[0]
+        rows = _rows(mp.mesh, b_ax, tokens.shape[0])
+        parts = {k: [v[..., r, :] if k == "positions" else v[r] for r in rows]
+                 for k, v in batch.items()}
+    if "positions" not in parts:
+        parts["positions"] = [L.token_positions(t.shape[0], t.shape[1], t.device)
+                              for t in parts["tokens"]]
+    return b_ax, parts
+
+
+def _mesh_block(mp: MeshParams, cfg: TransformerConfig, i: int, xs: list, pos: list,
+                x_spec: tuple, use_ep: bool, mode: str, cache=None, max_len: int = 0):
+    """Layer ``i`` on the mesh, its weights gathered here: (each shard's
+    activations after it, aux, each shard's (k, v) in ``"prefill"``)."""
+    blk, rest = _layer_weights(mp, "blocks", i)
+    hs = [L.rmsnorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, kvs = _mesh_attention(mp.mesh, cfg, blk, rest, hs, pos, mode, cache, i, max_len)
+    xs = [x + y for x, y in zip(xs, ys)]
+    hs = [L.rmsnorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, aux = _mesh_ffn(mp.mesh, cfg, blk, rest, hs, x_spec, use_ep)
+    return [x + y for x, y in zip(xs, ys)], aux, kvs
 
 
 def _mesh_run(mp: MeshParams, cfg: TransformerConfig, tokens, positions, mode: str,
               max_len: int = 0, cache=None, cache_dtype=torch.bfloat16):
-    """The layers on the mesh: (b_ax, each shard's final activations, aux,
-    cache)."""
-    mesh = mp.mesh
-    b_ax, rows, toks, pos = _mesh_inputs(mp, tokens, positions)
-    x_spec = (b_ax, None, None)
-    xs = _mesh_embed(mp, cfg, toks)
-    use_ep = cfg.moe_impl == "ep_a2a" and mesh.model > 1 and mode != "decode"
+    """The layers on the mesh for serving: (b_ax, each shard's final
+    activations, the cache)."""
+    b_ax, parts = _shard_batch(mp, {"tokens": tokens, "positions": positions})
+    xs = _mesh_embed(mp, cfg, parts["tokens"])
+    use_ep = cfg.moe_impl == "ep_a2a" and mp.mesh.model > 1 and mode != "decode"
     cache_k = cache_v = None
-    aux = torch.zeros((), device=xs[0].device)
     for i in range(cfg.n_layers):
-        blk, rest = _layer_weights(mp, "blocks", i)
-        hs = [L.rmsnorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
-        ys, kvs = _mesh_attention(mesh, cfg, blk, rest, hs, pos, mode, cache, i, max_len)
-        xs = [x + y for x, y in zip(xs, ys)]
+        xs, _, kvs = _mesh_block(mp, cfg, i, xs, parts["positions"], (b_ax, None, None), use_ep,
+                                 mode, cache, max_len)
         if kvs is not None:
             if i == 0:
                 cache_k = [torch.zeros((cfg.n_layers,) + tuple(k.shape), dtype=cache_dtype,
@@ -496,16 +521,34 @@ def _mesh_run(mp: MeshParams, cfg: TransformerConfig, tokens, positions, mode: s
             for j, (k, v) in enumerate(kvs):
                 cache_k[j][i] = k
                 cache_v[j][i] = v
-        hs = [L.rmsnorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
-        ys, a = _mesh_ffn(mesh, cfg, blk, rest, hs, x_spec, use_ep)
-        xs = [x + y for x, y in zip(xs, ys)]
-        aux = aux + a
-        del blk       # the gathered layer goes before the next is gathered
     if mode == "prefill":
         cache = KVCache(k=cache_k, v=cache_v, index=tokens.shape[1])
     elif mode == "decode":
         cache = cache._replace(index=cache.index + 1)
-    return b_ax, xs, aux, cache
+    return b_ax, xs, cache
+
+
+def _mesh_hidden(mp: MeshParams, cfg: TransformerConfig, batch: dict):
+    """The layers on the mesh with an autograd graph, each checkpointed
+    layer (or group, ``_remat_groups``) gathering its weights inside its
+    checkpoint: (b_ax, the batch's parts, each shard's hidden states after
+    the final norm, aux)."""
+    b_ax, parts = _shard_batch(mp, batch)
+    x_spec = (b_ax, None, None)
+    use_ep = cfg.moe_impl == "ep_a2a" and mp.mesh.model > 1
+
+    def run(layers, xs, aux):
+        for i in layers:
+            xs, a, _ = _mesh_block(mp, cfg, i, xs, parts["positions"], x_spec, use_ep, "forward")
+            aux = aux + a
+        return xs, aux
+
+    xs = _mesh_embed(mp, cfg, parts["tokens"])
+    aux = torch.zeros((), device=xs[0].device)
+    for layers in _remat_groups(cfg, list(range(cfg.n_layers))):
+        xs, aux = L.remat_call(cfg.remat, run, layers, xs, aux)
+    hs = [L.rmsnorm(s["final_norm"], x, cfg.norm_eps) for s, x in zip(mp.shards, xs)]
+    return b_ax, parts, hs, aux
 
 
 @torch.no_grad()
@@ -514,8 +557,8 @@ def mesh_prefill(mp: MeshParams, cfg: TransformerConfig, tokens: torch.Tensor, m
     """``prefill`` on a mesh: ``tokens`` [B, T] (and ``positions``) the
     whole batch, the same on every rank.  Returns (``MeshLogits`` of the
     last token, the ``KVCache`` of lists: one tensor a local shard)."""
-    b_ax, xs, _, cache = _mesh_run(mp, cfg, tokens, positions, "prefill", max_len,
-                                   cache_dtype=cache_dtype)
+    b_ax, xs, cache = _mesh_run(mp, cfg, tokens, positions, "prefill", max_len,
+                                cache_dtype=cache_dtype)
     return _mesh_unembed(mp, cfg, xs, b_ax), cache
 
 
@@ -527,16 +570,39 @@ def mesh_decode_step(mp: MeshParams, cfg: TransformerConfig, token: torch.Tensor
     cache in place; returns (``MeshLogits``, the cache with index + 1).
     The MoE runs the default dispatch (``moe_impl`` aside), as the
     reference's decode does."""
-    b_ax, xs, _, cache = _mesh_run(mp, cfg, token, None, "decode", cache=cache)
+    b_ax, xs, cache = _mesh_run(mp, cfg, token, None, "decode", cache=cache)
     return _mesh_unembed(mp, cfg, xs, b_ax), cache
 
 
-@torch.no_grad()
 def mesh_forward(mp: MeshParams, cfg: TransformerConfig, tokens: torch.Tensor,
                  positions: torch.Tensor | None = None):
-    """``forward`` on a mesh (no autograd graph: training on the mesh is
-    not ported yet, ROADMAP.md section 1): (hidden [B, T, D] after the
-    final norm, gathered on every rank, aux)."""
-    b_ax, xs, aux, _ = _mesh_run(mp, cfg, tokens, positions, "forward")
-    hs = [L.rmsnorm(s["final_norm"], x, cfg.norm_eps) for s, x in zip(mp.shards, xs)]
+    """``forward`` on a mesh, with an autograd graph: (hidden [B, T, D]
+    after the final norm, gathered on every rank, aux)."""
+    b_ax, _, hs, aux = _mesh_hidden(mp, cfg, {"tokens": tokens, "positions": positions})
     return gather(mp.mesh, hs, (b_ax, None, None))[0], aux
+
+
+def mesh_loss_fn(mp: MeshParams, cfg: TransformerConfig, batch: dict) -> torch.Tensor:
+    """``loss_fn`` on a mesh: the mean cross entropy (with z-loss) over the
+    global batch plus ``aux_coef`` times the MoE aux, each token counted
+    once.  ``batch`` holds the whole batch (the same on every rank), or
+    ``sharding.Laid`` leaves cut onto the mesh
+    (``launch.steps.microbatch_constraint``).  Autograd runs from this
+    rank's part of the loss (its shards' weighted cross entropies, and the
+    aux over the number of ranks); the value is the whole loss, summed over
+    the ranks."""
+    mesh = mp.mesh
+    b_ax, parts, hs, aux = _mesh_hidden(mp, cfg, batch)
+    table, rest = _layer_weights(mp, "embed")
+    logits = [L.unembed(t, h) for t, h in zip(table, hs)]
+    if _on_model(rest["table"][0]):
+        logits = mesh.all_gather(logits, "model", -1)
+    weight = 1.0 / mesh.n_shards
+    held = {}
+    for lg, lab in zip(logits, parts["labels"]):
+        held.setdefault(id(lg), [lg, lab, 0.0])[2] += weight
+    local = sum(L.cross_entropy(lg, lab, z_loss=cfg.z_loss) * w for lg, lab, w in held.values())
+    local = local + cfg.aux_coef * aux / mesh.world
+    if mesh.group is None:
+        return local
+    return mesh.total(local) + (local - local.detach())     # the value the total's, bit for bit

@@ -1,13 +1,16 @@
-"""One rank of the port's LM mesh over gloo, for ``test_torch_lm_mesh``.
+"""One rank of the port's LM mesh over gloo, for ``test_torch_lm_mesh``
+and ``test_torch_lm_train_mesh``.
 
-    python tests/_torch_lm_mesh_worker.py OUT RANK WORLD
+    python tests/_torch_lm_mesh_worker.py OUT RANK WORLD [DATA MODEL]
 
-Started once per rank by the test.  It joins a gloo group of WORLD ranks
-through a ``FileStore`` in OUT (collectives time out after 60 s) as a
-``data 1 x model WORLD`` LM mesh (``launch.mesh.init_lm_mesh``), one shard
-a rank, runs ``scenarios`` and writes what it got to ``OUT/rank<RANK>.npz``.
-Torch runs on one thread.  The test runs the same ``scenarios`` on a
-one-process mesh for the comparison.
+Started once per rank by a test.  It joins a gloo group of WORLD ranks
+through a ``FileStore`` in OUT (collectives time out after 60 s) as an LM
+mesh (``launch.mesh.init_lm_mesh``) and writes what it got to
+``OUT/rank<RANK>.npz``: without DATA and MODEL a ``data 1 x model WORLD``
+mesh, one shard a rank, running ``scenarios`` (serving); with them a
+``DATA x MODEL`` mesh running ``train_scenarios``.  Torch runs on one
+thread.  The tests run the same scenarios on a one-process mesh for the
+comparison.
 """
 from __future__ import annotations
 
@@ -22,6 +25,11 @@ import torch
 # fsdp (per-layer gathers only)
 CASES = (("llama3-405b", None), ("granite-moe-1b-a400m", "ep_a2a"), ("qwen2-7b", None))
 STEPS = 3
+# training: (arch, moe_impl) two steps of two microbatches each: fsdp_tp
+# (the vocabulary-split logits gathered, the row-parallel sums), ep_dp
+# with the all-to-all dispatch and its reverse in backward, fsdp
+TRAIN_CASES = (("llama3-405b", None), ("granite-moe-1b-a400m", "ep_a2a"), ("qwen2-7b", None))
+TRAIN_STEPS = 2
 
 
 def scenarios(mesh) -> dict:
@@ -51,20 +59,53 @@ def scenarios(mesh) -> dict:
     return out
 
 
-def main(out: str, rank: str, world: str) -> int:
+def train_scenarios(mesh) -> dict:
+    """``TRAIN_STEPS`` mesh train steps (two microbatches of a batch 4 x 9
+    from numpy) of each case's smoke model from its seeded state: each
+    step's loss and gradient norm, and the parameters after them gathered
+    (``sharding.logical_tree``: a gather on every rank)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import logical_tree
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten
+
+    out = {}
+    rng = np.random.default_rng(9)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    for arch_id, impl in TRAIN_CASES:
+        arch = registry.get_config(arch_id)
+        model = steps.build_model(arch, smoke=True, moe_impl=impl, mesh=mesh)
+        state = steps.init_train_state(model, opt, torch.Generator().manual_seed(3))
+        step = steps.make_train_step(model, opt, 2, mesh=mesh, policy=arch.parallelism)
+        for i in range(TRAIN_STEPS):
+            toks = torch.from_numpy(rng.integers(0, model.config.vocab, (4, 10)))
+            state, met = step(state, {"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+            out[f"{arch_id}:loss{i}"] = float(met["loss"])
+            out[f"{arch_id}:grad_norm{i}"] = float(met["grad_norm"])
+        names, leaves = tree_flatten(logical_tree(state.params))
+        out.update({f"{arch_id}:{n}": t.numpy() for n, t in zip(names, leaves)})
+    return out
+
+
+def main(out: str, rank: str, world: str, data: str | None = None,
+         model: str | None = None) -> int:
     from repro_torch.launch.mesh import init_lm_mesh
 
     torch.set_num_threads(1)
     out_dir = pathlib.Path(out)
     store = torch.distributed.FileStore(str(out_dir / "store"), int(world))
-    mesh = init_lm_mesh(int(world), device="cpu", store=store, rank=int(rank),
-                        world=int(world), timeout_s=60.0)
+    train = data is not None
+    mesh = init_lm_mesh(int(model) if train else int(world), data=int(data) if train else 1,
+                        device="cpu", store=store, rank=int(rank), world=int(world),
+                        timeout_s=60.0)
     try:
-        np.savez(out_dir / f"rank{rank}.npz", **scenarios(mesh))
+        got = train_scenarios(mesh) if train else scenarios(mesh)
+        np.savez(out_dir / f"rank{rank}.npz", **got)
     finally:
         mesh.close()
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:4]))
+    sys.exit(main(*sys.argv[1:6]))

@@ -1295,3 +1295,58 @@ def test_smoke_model_train_step_card_equals_cpu(cuda, arch_id):
         sure = g.abs() > 0.1 * rms
         diff = (b.cpu()[sure] - a[sure]).abs()
         assert diff.numel() == 0 or float(diff.max()) <= 1e-3 * lr
+
+
+@pytest.mark.parametrize("arch_id", ["llama3-405b", "qwen2-7b", "granite-moe-1b-a400m"])
+def test_smoke_model_mesh_train_step_card_equals_cpu(cuda, arch_id):
+    """One mesh train step of each policy's smoke model at ``data 1 x
+    model 4`` (two microbatches; the MoE dropless; float32, TF32 off), the
+    state made on the CPU and cut onto a CPU mesh and a card mesh: the loss
+    within 1e-5 relative, the gradient norm within 1e-4, and the gathered
+    parameters after the step within 1e-3 of the step's rate where the
+    CPU's gradient is far from 0, as chip_smoke phase 17 holds the
+    full-width models."""
+    from repro_torch.configs import registry
+    from repro_torch.data import TokenPipeline, TokenPipelineConfig
+    from repro_torch.device import resolve_device
+    from repro_torch.distributed import sharding
+    from repro_torch.launch import steps, train
+    from repro_torch.launch.mesh import make_lm_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    resolve_device(cuda)
+    arch = registry.get_config(arch_id)
+    cfg = arch.smoke_model
+    if getattr(cfg, "moe", None) is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    one = model_zoo.build(cfg, arch.family)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    host = steps.init_train_state(one, opt, torch.Generator().manual_seed(4), "cpu")
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=32, global_batch=4, seed=4))
+    grads = tree_leaves(adamw.accumulate_grads(
+        one.loss_fn, host.params, train.make_batch_fn(one, arch.family, pipe, 32, "cpu")(0), 2)[1])
+    out = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        mesh = make_lm_mesh(4, device=dev)
+        model = model_zoo.build(cfg, arch.family, mesh=mesh, policy=arch.parallelism)
+        state = steps.shard_train_state(tree_map(lambda t: t.to(dev, copy=True), host), mesh,
+                                        arch.family, arch.parallelism)
+        step = steps.make_train_step(model, opt, 2, mesh=mesh, policy=arch.parallelism)
+        state, met = step(state, train.make_batch_fn(one, arch.family, pipe, 32, dev)(0))
+        out[name] = ({k: float(v) for k, v in met.items()},
+                     [t.cpu() for t in tree_leaves(sharding.unshard_params(state.params))])
+    (cpu_met, cpu_p), (card_met, card_p) = out["cpu"], out["card"]
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        assert abs(card_met[key] - cpu_met[key]) <= tol * abs(cpu_met[key])
+    lr = cpu_met["lr"]
+    total = float(torch.cat([g.flatten() for g in grads]).pow(2).mean().sqrt())
+    for g, a, b in zip(grads, cpu_p, card_p):
+        rms = float(g.pow(2).mean().sqrt())
+        if rms < 1e-6 * total:
+            continue
+        sure = g.abs() > 0.1 * rms
+        diff = (b[sure] - a[sure]).abs()
+        assert diff.numel() == 0 or float(diff.max()) <= 1e-3 * lr
