@@ -254,9 +254,11 @@ Phases (any failure exits non-zero before the last line is printed):
    within ``LM_BF16_CARD_TOL`` times the CPU logits' RMS.  (b) qwen2-7b
    (28 layers, 7.07e9 float32 parameters) and granite-moe-1b-a400m at
    full size, and qwen2-vl-7b at full width cut to 4 layers (M-RoPE),
-   built on the card from the seed: 3 batches of 8 requests, prompt 64,
+   built on the card from the seed: 2 batches of 8 requests (3 until
+   phase 18 came), prompt 64,
    32 new tokens; prefill ms, decode tokens/s, peak device bytes; the last
-   batch's prompts traced for 4 tokens (device-busy share, top kernels;
+   batch's prompts traced for 1 token (device-busy share, top kernels; 4
+   before phase 18 came,
    8 before phase 15 came);
    the decode-consistency rule on the last batch (prefill and decode
    logits against ``forward``'s on the generated sequences in bfloat16,
@@ -268,7 +270,8 @@ Phases (any failure exits non-zero before the last line is printed):
    (``tests/test_torch_cuda.py -k smoke_model``).  (c) the RAG loop of
    ``examples/torch_rag_serve.py`` in front of the full-size qwen2-7b
    ``Server``: 262,144 documents of dim 128, one index served as its f32
-   and its int8 copy, 32 requests each; requests/s end to end, the build's
+   and its int8 copy, 16 requests each (32 until phase 18 came); requests/s
+   end to end, the build's
    and the gather kernels' launches.  (d) the ssm, hybrid and encdec
    families (float32 activations): card against CPU in float32 (TF32 off)
    for mamba2-130m whole at a 160-token prompt (two SSD chunks with
@@ -287,7 +290,8 @@ Phases (any failure exits non-zero before the last line is printed):
    ``optim/adamw.py``, ``checkpoint/``; no kernel of the port runs in it),
    after phase 14's models are freed.  (a) Card against CPU in float32
    activations (TF32 off): one ``make_train_step`` of two microbatches,
-   batch 4, seq 64, on mamba2-130m whole and qwen2-7b at full width (d_model
+   batch 4, seq 64, on mamba2-130m whole and
+   qwen2-7b at full width (d_model
    3584, vocab 152,064) cut to 1 layer, the state made once on the card and
    copied: the loss within 1e-5 relative, the global gradient norm within
    1e-4, every gradient leaf's error RMS within 1e-4 of its RMS and its
@@ -328,8 +332,9 @@ Phases (any failure exits non-zero before the last line is printed):
    width cut to 4 layers in float32 (TF32 off), m = 4: greedy tokens
    identical, logits within ``LM_F32_TOL``; again over a one-rank NCCL
    group (``init_lm_mesh``), equal to the one-process mesh exactly.  (c)
-   granite-moe-1b-a400m (``ep_dp``) cut to 12 of its 24 layers (whole
-   until phase 17 came) at its capacity factor 1.25 in float32
+   granite-moe-1b-a400m (``ep_dp``) cut to 6 of its 24 layers (whole
+   until phase 17 came, 12 until phase 18) at its capacity factor 1.25 in
+   float32
    activations, m = 4, logits (float32 KV caches) within
    ``LM_BF16_CARD_TOL`` of the RMS (see ``MESH_RUNS``); and
    ``moe_apply_ep`` on its first layer at full width over a 4-shard
@@ -354,24 +359,53 @@ Phases (any failure exits non-zero before the last line is printed):
    traced mesh step.  (b) granite-moe-1b-a400m (``ep_dp``) whole in float32
    activations, dropless (capacity factor E / k), m = 4, the same step and
    limits; then the step with ``moe_impl="ep_a2a"``: its loss within 1e-5
-   of the default dispatch's.  (c) llama3-405b (``fsdp_tp``) at full width
-   cut to 1 layer in bfloat16 with bfloat16 moments, m = 8, batch 8, seq
+   of the default dispatch's.  (c) llama3-405b
+   (``fsdp_tp``) at full width cut to 1 layer in bfloat16 with bfloat16
+   moments, m = 8, batch 8, seq
    128: each shard's state bytes exactly its blocks, and the loss and
    gradient norm within ``LM_BF16_CARD_TOL`` relative of the same step at m
-   = 2 (run after the m = 8 state is freed).  (d) the train CLI on qwen2-7b
-   at full width cut to 1 layer in float32: six steps at m = 4 stopped by
-   ``RunGuard`` after step 3 (a checkpoint at 3), whose files equal a
-   one-card save of the state it holds (names, the manifest, each array's
-   shape, dtype and bytes), then
-   ``--resume --model-parallel 2`` to step 6: it prints ``resumed from step
-   3 onto`` and its losses are within 1e-5 relative of an uninterrupted m =
-   4 six-step run's.  (e) ``compressed_psum`` on (d)'s first two steps'
+   = 2 (run after the m = 8 state is freed).  (d) the train CLI on
+   mamba2-130m whole: four steps at m = 2 stopped by ``RunGuard`` after
+   step 2 (a checkpoint at 2), whose files equal a one-card save of the
+   state it holds (names, the manifest, each array's shape, dtype and
+   bytes), then ``--resume --model-parallel 4`` to step 4: it prints
+   ``resumed from step 2 onto`` and its losses are within 1e-5 relative of
+   an uninterrupted m = 2 four-step run's (until phase 18 came: qwen2-7b
+   at full width cut to 1 layer, a 9.3 GB checkpoint, six steps at m = 4
+   stopped after 3 and resumed onto 2).  (e) ``compressed_psum`` on (d)'s first two steps'
    gradients (one a data coordinate, each cut over `model`) over
    ``make_lm_mesh(2, data=2)``: "none" the exact mean, "bf16" within one
    bfloat16 ulp and "int8" within one int8 step of the scale of it, each
    residual exactly ``g32 - decompress(...)``, ``wire_bytes`` its count.
    Each run's step ms, tokens/s and peak bytes above held (at m = 1 and m).
    Each row of the ``kernels`` line gains its ``phase17_launches``, all 0.
+18. The ssm, hybrid and encdec families on a ("data", "model") mesh
+   (``models/mamba2.py::mesh_mamba2``, the ``mesh_*`` functions of
+   ``ssm_lm``, ``hybrid`` and ``encdec``; no kernel of the port runs in
+   them), after phase 17's models are freed; all shards on this card, one
+   after another, in float32 activations (TF32 off); each model's weights
+   made once on the card from the seed, run on one shard and cut onto
+   ``data 1 x model m``.  (a) Serving, batch 8, prompt 64, 16 new tokens:
+   mamba2-130m whole (``fsdp_tp``, 6 of 24 heads a shard) at m = 4, again
+   at m = 8 and over a one-rank NCCL group (``init_lm_mesh``), which must
+   equal the one-process mesh exactly; zamba2-2.7b at full width cut 54 ->
+   36 layers at the published ``attn_every`` of 18 (the shared block used
+   twice; 8 of 32 attention heads and 20 of 80 SSM heads a shard) at m =
+   4; whisper-tiny whole (``fsdp``, 2 rows a shard) on its bfloat16 stub
+   frames at m = 4: greedy tokens identical, prefill logits and the
+   teacher-forced decode logits within ``FAMILY_MESH_TOL`` of the
+   one-shard run's, the caches put back together (float32 states within
+   the decode limit, bfloat16 KV caches within ``FAMILY_MESH_CACHE_ULPS``
+   ulps), each shard's parameter bytes exactly its blocks; prefill ms,
+   decode tokens/s and peak bytes at m = 1 and 4 (the greedy tokens at m =
+   8 and over the group from the teacher-forced steps' argmax).  (b) Training: one
+   ``make_train_step`` of two microbatches, batch 4, seq 64, on ``data 1 x
+   model 4`` from the one-shard state, held to phase 17(a)'s limits (every
+   gradient finite): mamba2-130m whole, zamba2-2.7b at full width cut to 4
+   Mamba2 layers at ``attn_every`` 2 (the shared block used twice) and
+   whisper-tiny whole (its frames widened to float32).  One JSON line a
+   run.  Each row of the ``kernels`` line gains its ``phase18_launches``,
+   all 0.
 
 The second-to-last line is the card's ``nvidia-smi`` name and power limit,
 the line before it the ``kernels`` JSON, and the last line the result JSON.
@@ -384,6 +418,7 @@ import copy
 import dataclasses
 import gc
 import json
+import math
 import pathlib
 import subprocess
 import sys
@@ -3033,8 +3068,10 @@ def phase_roofline(full: dict, kstats: dict, dist_kernels: dict, x_np, q_np, see
 # (b) full-size runs; (c) the RAG example at full size
 LM_CUT_LAYERS = 2
 LM_PARITY_BATCH, LM_PARITY_PROMPT, LM_PARITY_NEW = 2, 16, 4
-LM_BATCH, LM_PROMPT, LM_NEW, LM_BATCHES = 8, 64, 32, 3
-LM_TRACE_NEW = 4     # tokens of the traced generate (torch.profiler; 8 before phase 15)
+# LM_BATCHES 2 and LM_TRACE_NEW 1 since phase 18 came (3 and 4 before it;
+# the trace 8 tokens before phase 15)
+LM_BATCH, LM_PROMPT, LM_NEW, LM_BATCHES = 8, 64, 32, 2
+LM_TRACE_NEW = 1     # tokens of the traced generate (torch.profiler)
 # (architecture, layers kept: None = all); llama3-405b, grok-1-314b and
 # internlm2-20b do not fit one card in float32, qwen3-14b is left out for time:
 # those four run at smoke width only (the CPU tests and tests/test_torch_cuda.py)
@@ -3056,7 +3093,8 @@ LM_F32_TOL = (1e-4, 2e-3)
 LM_BF16_CARD_TOL = 0.1
 LM_BF16_CONSISTENCY_TOL = 0.5
 LM_ARGMAX_AGREE = 0.7
-RAG_CORPUS, RAG_DIM, RAG_REQUESTS = 2 ** 18, 128, 32
+# 16 requests since phase 18 came (32 before it)
+RAG_CORPUS, RAG_DIM, RAG_REQUESTS = 2 ** 18, 128, 16
 # phase 14d: the ssm, hybrid and encdec families, all float32 activations.
 # (a) card against CPU: (architecture, layers kept (None: all), prompt);
 # mamba2's 160 tokens are two SSD chunks of 128 with padding, zamba2 keeps
@@ -3557,7 +3595,9 @@ TRAIN_GRAD_RMS_TOL, TRAIN_GRAD_MAX_TOL = 1e-4, 1e-2
 # a 10-step run at 3e-3 diverged on the H100, 12.7 -> 32.8); mamba2-130m at
 # examples/train_lm.py's settings, 10 steps (20 until phase 17 came: its
 # loss falls from 10.97 to 7.31 in the first ten); qwen2-7b again without
-# remat
+# remat.  Not cut for phase 18: at 6 steps (a warmup of 6) qwen2-7b's loss
+# rose, 14.92 -> 16.49 (the mean of the first three steps and the last
+# three; chip_smoke, PR 30), so the rule below needs the 10
 TRAIN_RUNS = (("qwen2-7b", 4, 8, 1024, 2, 10, 3e-4), ("mamba2-130m", None, 16, 128, 2, 10, 3e-3))
 TRAIN_NO_REMAT_STEPS = 3
 # (c) mamba2-130m stopped by RunGuard's flag after step TRAIN_STOP, resumed
@@ -3868,7 +3908,7 @@ def phase_train(seed: int) -> dict:
 # steps; phase 14b's consistency rule reads 0.23-0.24 for the same reason)
 MESH_RUNS = (("llama3-405b", 2, 8, "published", None, "bfloat16"),
              ("qwen2-7b", 4, 4, "float32", None, "bfloat16"),
-             ("granite-moe-1b-a400m", 12, 4, "float32", LM_BF16_CARD_TOL, "float32"))
+             ("granite-moe-1b-a400m", 6, 4, "float32", LM_BF16_CARD_TOL, "float32"))
 MESH_BATCH, MESH_PROMPT, MESH_NEW = 8, 64, 16
 # granite's moe_apply_ep over a 4-shard `model` axis against moe_apply in
 # float32 at a capacity factor where neither drops a token (the
@@ -4006,15 +4046,7 @@ def _mesh_run(arch_id: str, n_layers, m: int, dtype: str, rms_tol, cache: str,
                new=MESH_NEW)
     sv = _on_mesh(one, make_lm_mesh(m, device="cuda"))
     specs = sharding.spec_leaves(one.params, sv.params.specs)
-    want_bytes = []
-    for tree, c in zip(sv.params.shards, sv.mesh.local):
-        want = sum(t.numel() * t.element_size() // int(np.prod(
-            [sharding.block_index(e, sv.mesh.shape, c)[1] for e in s] or [1]))
-            for t, s in zip(leaves, specs))
-        got = sharding.shard_bytes(tree)
-        check(got == want, f"phase16 {arch_id}: shard {c} holds {got} bytes, its blocks {want}")
-        want_bytes.append(got)
-    out["shard_bytes"] = want_bytes
+    out["shard_bytes"] = _shard_bytes_exact(one, sv, f"phase16 {arch_id}")
     out["replicated_bytes"] = sum(t.numel() * t.element_size() for t, s in zip(leaves, specs)
                                   if not any(sharding.axes_of(e) for e in s))
     prompts = np.random.default_rng(seed).integers(
@@ -4102,12 +4134,16 @@ MESH_TRAIN_BATCH, MESH_TRAIN_SEQ, MESH_TRAIN_MICRO = 4, 64, 2
 # (layers kept, model_parallel, the check's model_parallel, batch, seq),
 # one microbatch; the loss and gradient norm held at LM_BF16_CARD_TOL
 MESH_TRAIN_TP = (1, 8, 2, 8, 128)
-# (d) the train CLI's elastic restore on qwen2-7b at full width in float32:
-# (layers kept, m of the first run, m of the resumed run, the step the guard
-# stops after, steps, batch, seq, peak rate); the steps and rate fix the
-# schedule, so the stopped run and the resumed one run the uninterrupted
-# run's schedule; (e) compressed_psum on that run's first two gradients
-MESH_ELASTIC = (1, 4, 2, 3, 6, 4, 64, 3e-4)
+# (d) the train CLI's elastic restore (architecture, layers kept, m of the
+# first run, m of the resumed run, the step the guard stops after, steps,
+# batch, seq, peak rate); the steps and rate fix the schedule, so the
+# stopped run and the resumed one run the uninterrupted run's schedule;
+# mamba2-130m whole at the CLI's rate, four steps on m = 2 stopped after
+# 2, resumed onto 4 (until phase 18 came: qwen2-7b at full width cut to 1
+# layer at 3e-4, six steps on m = 4 stopped after 3, resumed onto 2; its
+# 9.3 GB checkpoints took most of its 40-51 s); (e) compressed_psum on
+# that run's first two gradients
+MESH_ELASTIC = ("mamba2-130m", None, 2, 4, 2, 4, 4, 64, 3e-3)
 MESH_ELASTIC_RTOL = 1e-5
 
 
@@ -4127,7 +4163,7 @@ def _timed_step(step, state, batch) -> tuple:
         held_before=held)
 
 
-def _param_errors(grads, want, got, lr: float, tag: str) -> dict:
+def _param_errors(grads, want, got, lr: float, tag: str, phase: str = "phase17") -> dict:
     """The parameters ``got`` after a step against ``want`` (trees of one
     structure) where the gradient ``grads`` exceeds ``TRAIN_PARAM_MASK`` of
     its leaf's RMS: within ``TRAIN_PARAM_LR`` of the step's rate."""
@@ -4148,19 +4184,22 @@ def _param_errors(grads, want, got, lr: float, tag: str) -> dict:
         compared += int(sure.sum())
         if bool(sure.any()):
             err = float((b[sure].float() - a[sure].float()).abs().max())
-            check(err <= TRAIN_PARAM_LR * lr, f"phase17 {tag}: parameter {name} after the step "
+            check(err <= TRAIN_PARAM_LR * lr, f"{phase} {tag}: parameter {name} after the step "
                   f"off by {err} > {TRAIN_PARAM_LR} x lr {lr}")
             worst = max(worst, err / lr)
     return dict(param_max_err_over_lr=worst, params_compared=compared, noise_leaves=noise)
 
 
-def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
-                       seed: int) -> dict:
+def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool, seed: int,
+                       phase: str = "phase17", **fields) -> dict:
     """(a), (b): one ``make_train_step`` of ``arch_id`` at full width on one
     shard and on ``data 1 x model m`` from the same state (made once on the
     card from the seed; the mesh's cut from a copy), held to the
     ``TRAIN_*`` limits; then over a one-rank NCCL group, or with the
-    ``ep_a2a`` dispatch, against the one-process mesh."""
+    ``ep_a2a`` dispatch, against the one-process mesh.  ``fields`` replace
+    the config's (a transformer's activations are float32 in any case, and
+    an encoder's bfloat16 frames are widened to float32); the mesh step's
+    gradient norm must be finite (so every gradient is)."""
     import os
     import tempfile
 
@@ -4178,8 +4217,10 @@ def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
 
     cuda = torch.device("cuda")
     arch = registry.get_config(arch_id)
+    if hasattr(arch.model, "act_dtype"):
+        fields = dict(fields, act_dtype=torch.float32)
     cfg = _dropless(dataclasses.replace(arch.model, n_layers=n_layers or arch.model.n_layers,
-                                        act_dtype=torch.float32))
+                                        **fields))
     one = model_zoo.build(cfg, arch.family)
     opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
     t0 = time.perf_counter()
@@ -4187,12 +4228,14 @@ def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
     pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, seq_len=MESH_TRAIN_SEQ,
                                              global_batch=MESH_TRAIN_BATCH, seed=seed))
     batch = train.make_batch_fn(one, arch.family, pipe, MESH_TRAIN_SEQ, cuda)(0)
+    if "frames" in batch:       # the encoder runs in its frames' dtype
+        batch["frames"] = batch["frames"].float()
     tokens = MESH_TRAIN_BATCH * MESH_TRAIN_SEQ
     out = dict(arch=arch_id, policy=arch.parallelism, layers=cfg.n_layers, d_model=cfg.d_model,
-               vocab=cfg.vocab, act_dtype="float32", model_parallel=m,
+               vocab=cfg.vocab, act_dtype="float32", model_parallel=m, fields=str(fields),
                params=sum(t.numel() for t in tree_flatten(init.params)[1]),
                batch=MESH_TRAIN_BATCH, seq=MESH_TRAIN_SEQ, micro=MESH_TRAIN_MICRO,
-               capacity_factor=cfg.moe.capacity_factor if cfg.moe else None,
+               capacity_factor=cfg.moe.capacity_factor if getattr(cfg, "moe", None) else None,
                init_s=time.perf_counter() - t0)
 
     def report(rec: dict, metrics: dict) -> dict:
@@ -4227,11 +4270,13 @@ def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
     loss_rel = abs(met_m["loss"] - met1["loss"]) / abs(met1["loss"])
     gnorm_rel = abs(met_m["grad_norm"] - met1["grad_norm"]) / met1["grad_norm"]
     out.update(loss_rel_err=loss_rel, grad_norm_rel_err=gnorm_rel,
-               **_param_errors(grads, want, got, lr, arch_id))
+               **_param_errors(grads, want, got, lr, arch_id, phase))
+    check(math.isfinite(met_m["grad_norm"]) and math.isfinite(met_m["loss"]),
+          f"{phase} {arch_id}: the mesh step's loss or gradient norm is not finite: {met_m}")
     check(loss_rel <= TRAIN_LOSS_RTOL,
-          f"phase17 {arch_id}: mesh loss off the one shard's by {loss_rel} relative")
+          f"{phase} {arch_id}: mesh loss off the one shard's by {loss_rel} relative")
     check(gnorm_rel <= TRAIN_GNORM_RTOL,
-          f"phase17 {arch_id}: mesh gradient norm off the one shard's by {gnorm_rel} relative")
+          f"{phase} {arch_id}: mesh gradient norm off the one shard's by {gnorm_rel} relative")
     del grads, want
     if nccl:
         got = tree_map(torch.clone, got)      # the traced step writes the mesh state
@@ -4268,7 +4313,7 @@ def _mesh_train_parity(arch_id: str, n_layers, m: int, nccl: bool, ep: bool,
         rel = abs(met_e["loss"] - met_m["loss"]) / abs(met_m["loss"])
         out["ep_a2a"] = dict(report(rec, met_e), loss_rel_err=rel)
         check(rel <= TRAIN_LOSS_RTOL,
-              f"phase17 {arch_id}: ep_a2a loss off the default dispatch's by {rel} relative")
+              f"{phase} {arch_id}: ep_a2a loss off the default dispatch's by {rel} relative")
     del init, got
     gc.collect()
     torch.cuda.empty_cache()
@@ -4390,7 +4435,7 @@ def _same_checkpoint(path: pathlib.Path, state, extra: dict, step: int) -> dict:
 
 
 def _mesh_train_elastic(seed: int) -> tuple[dict, list]:
-    """(d): the train CLI on qwen2-7b (``MESH_ELASTIC``): an uninterrupted
+    """(d): the train CLI (``MESH_ELASTIC``): an uninterrupted
     run at m1; the same run stopped by ``RunGuard`` after step ``stop``
     with ``--ckpt-dir``, whose checkpoint equals a one-card save of the
     state it holds; ``--resume`` at m2 to the end.  Returns the record and
@@ -4409,13 +4454,17 @@ def _mesh_train_elastic(seed: int) -> tuple[dict, list]:
     from repro_torch.launch import steps, train
     from repro_torch.optim import adamw
 
-    n_layers, m1, m2, stop, n_steps, batch, seq, lr = MESH_ELASTIC
-    argv = _train_argv("qwen2-7b", batch, seq, 1, n_steps, seed, "--lr", str(lr),
+    from repro_torch.configs import registry
+
+    arch_id, n_layers, m1, m2, stop, n_steps, batch, seq, lr = MESH_ELASTIC
+    argv = _train_argv(arch_id, batch, seq, 1, n_steps, seed, "--lr", str(lr),
                        "--log-every", "100", "--ckpt-every", "100")
-    out = dict(arch="qwen2-7b", layers=n_layers, act_dtype="float32", batch=batch, seq=seq,
+    out = dict(arch=arch_id, layers=n_layers, act_dtype="float32", batch=batch, seq=seq,
                steps=n_steps, stop=stop, model_parallel=[m1, m2], lr=lr)
     t0 = time.perf_counter()
-    with _arch_cut(n_layers, act_dtype=torch.float32):
+    fields = ({"act_dtype": torch.float32} if hasattr(registry.get_config(arch_id).model,
+                                                      "act_dtype") else {})
+    with _arch_cut(n_layers, **fields):
         with _grads_seen(keep=2) as seen:
             whole = train.run(argv + ["--model-parallel", str(m1)])
         out.update(uninterrupted=whole["losses"], uninterrupted_s=time.perf_counter() - t0,
@@ -4446,7 +4495,7 @@ def _mesh_train_elastic(seed: int) -> tuple[dict, list]:
                   f"phase17 elastic: the guard stopped after {len(cut['losses'])} steps")
             losses = list(cut["losses"])
             del cut
-            arch = train.get_config("qwen2-7b")
+            arch = train.get_config(arch_id)
             opt = adamw.AdamWConfig(lr=lr, warmup_steps=min(50, n_steps), total_steps=n_steps)
             like = steps.init_train_state(steps.build_model(arch), opt, torch.Generator(), "meta")
             t1 = time.perf_counter()
@@ -4580,6 +4629,232 @@ def phase_lm_train_mesh(seed: int) -> dict:
 
     path("elastic", elastic)
     path("compression", lambda: _mesh_compress(held.pop("grads")))
+    out["s"] = time.perf_counter() - t0
+    return out
+
+
+# phase 18: the ssm, hybrid and encdec families on a ("data", "model") mesh,
+# all shards on the one card, float32 activations (TF32 off; whisper's
+# encoder served on its bfloat16 stub frames, trained on them widened to
+# float32).  (a) serving, MESH_BATCH prompts of
+# MESH_PROMPT, MESH_NEW new tokens: (architecture, layers kept (None: all),
+# model_parallel values, a rerun over a one-rank NCCL group at the first);
+# zamba2 keeps 36 of its 54 layers at the published attn_every of 18, so
+# its shared block is used twice
+FAMILY_MESH_RUNS = (("mamba2-130m", None, (4, 8), True), ("zamba2-2.7b", 36, (4,), False),
+                    ("whisper-tiny", None, (4,), False))
+# max |logit difference| from the one-shard run, prefill and teacher-forced
+# decode (phase 14d's FAMILY_F32_TOL): mamba2's state is float32; zamba2
+# and whisper read bfloat16 KV caches.  The caches put back together: the
+# float32 states within the decode limit; a bfloat16 cache within
+# FAMILY_MESH_CACHE_ULPS bfloat16 ulps of the larger of the entry and the
+# cache's RMS (a value stored in bfloat16 cannot be held closer than its
+# rounding: one float32 ulp of difference in the product can round to the
+# neighbouring bfloat16, and zamba2's second use reads activations that
+# passed through the first use's bfloat16 cache; the CPU tests' rule,
+# tests/test_torch_lm_families_mesh.py)
+FAMILY_MESH_TOL = {"mamba2-130m": (1e-4, 1e-4), "zamba2-2.7b": LM_F32_TOL,
+                   "whisper-tiny": LM_F32_TOL}
+FAMILY_MESH_CACHE_ULPS = 2
+# (b) training on data 1 x FAMILY_TRAIN_M: (architecture, layers kept,
+# config fields); zamba2 at full width cut to 4 Mamba2 layers at attn_every
+# 2 (its shared block used twice); one make_train_step of
+# MESH_TRAIN_MICRO microbatches of MESH_TRAIN_BATCH x MESH_TRAIN_SEQ held
+# to phase 15(a)'s TRAIN_* limits, as phase 17(a)
+FAMILY_TRAIN_RUNS = (("mamba2-130m", None, {}), ("zamba2-2.7b", 4, {"attn_every": 2}),
+                     ("whisper-tiny", None, {}))
+FAMILY_TRAIN_M = 4
+
+
+def _family_logits(model, params, batch, seq, prompt_len: int, max_len: int) -> tuple:
+    """(logits [steps, B, V] float32, gathered on a mesh, of the model's
+    prefill of the prompts and its decode steps fed ``seq``'s next tokens;
+    the cache after them), any family, one shard or a mesh."""
+    import torch
+
+    from repro_torch.models.transformer import MeshLogits
+
+    def full(lg):
+        return lg.gather() if isinstance(lg, MeshLogits) else lg
+
+    logits, cache = model.prefill(params, batch, max_len)
+    out = [full(logits)]
+    tok = torch.as_tensor(seq, device=out[0].device)
+    for i in range(prompt_len, seq.shape[1] - 1):
+        logits, cache = model.decode_step(params, tok[:, i:i + 1], cache)
+        out.append(full(logits))
+    return torch.stack(out).float(), cache
+
+
+def _shard_bytes_exact(one, sv, tag: str) -> list:
+    """Each local shard's parameter bytes, checked to be exactly its blocks
+    of ``one``'s tree."""
+    import numpy as np
+
+    from repro_torch.distributed import sharding
+    from repro_torch.tree import tree_flatten
+
+    leaves = tree_flatten(one.params)[1]
+    specs = sharding.spec_leaves(one.params, sv.params.specs)
+    out = []
+    for tree, c in zip(sv.params.shards, sv.mesh.local):
+        want = sum(t.numel() * t.element_size() // int(np.prod(
+            [sharding.block_index(e, sv.mesh.shape, c)[1] for e in s] or [1]))
+            for t, s in zip(leaves, specs))
+        got = sharding.shard_bytes(tree)
+        check(got == want, f"{tag}: shard {c} holds {got} bytes, its blocks {want}")
+        out.append(got)
+    return out
+
+
+def _cache_errors(want, full, decode_tol: float, tag: str) -> dict:
+    """Each cache field of the mesh (put back together, ``full``) against
+    the one-shard cache ``want``: float32 states within ``decode_tol``,
+    bfloat16 caches within ``FAMILY_MESH_CACHE_ULPS`` ulps of the larger of
+    the entry and the cache's RMS.  Returns each field's largest error and,
+    for bfloat16, that error in ulps of that scale."""
+    import torch
+
+    out = {}
+    for name in want._fields[:-1]:
+        w = getattr(want, name)
+        g = getattr(full, name)
+        err = (g - w.float()).abs()
+        if w.dtype == torch.float32:
+            out[name] = dict(max_abs_err=float(err.max()))
+            check(out[name]["max_abs_err"] <= decode_tol,
+                  f"{tag}: cache {name} off the one shard's by {out[name]} > {decode_tol}")
+        else:
+            scale = torch.clamp_min(torch.maximum(g.abs(), w.float().abs()), _rms(w))
+            ulps = float((err / (2.0 ** -7 * scale)).max())
+            out[name] = dict(max_abs_err=float(err.max()), max_ulps=ulps, dtype=str(w.dtype))
+            check(ulps <= FAMILY_MESH_CACHE_ULPS,
+                  f"{tag}: cache {name} off the one shard's by {ulps} bfloat16 ulps")
+    return out
+
+
+def _family_mesh_run(arch_id: str, n_layers, ms: tuple, nccl: bool, seed: int) -> dict:
+    """(a): one architecture at full width (depth ``n_layers``) on the card
+    from a seed, on one shard and cut onto ``data 1 x model m`` for each of
+    ``ms``: ``generate`` at m = 1 and the first m (prefill ms, decode
+    tokens/s, peak bytes); each shard's parameter bytes its blocks; the
+    greedy tokens (each teacher-forced step's argmax, and the first m's
+    ``generate``), the prefill and teacher-forced decode logits and the
+    caches against the one-shard run's (``FAMILY_MESH_TOL``); over a
+    one-rank NCCL group the one-process mesh's exactly."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.mesh import init_lm_mesh, make_lm_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.models import model_zoo
+    from repro_torch.tree import tree_flatten
+
+    t0 = time.perf_counter()
+    max_len = MESH_PROMPT + MESH_NEW
+    with _arch_cut(n_layers):
+        one = Server(arch_id, smoke=False, max_len=max_len, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    cfg = one.model.config
+    leaves = tree_flatten(one.params)[1]
+    out = dict(arch=arch_id, policy=one.arch.parallelism, layers=cfg.n_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab, params=sum(t.numel() for t in leaves),
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+               init_s=time.perf_counter() - t0, batch=MESH_BATCH, prompt=MESH_PROMPT,
+               new=MESH_NEW, tol=FAMILY_MESH_TOL[arch_id], mesh={})
+    if arch_id == "zamba2-2.7b":
+        out["shared_block_uses"] = cfg.n_apps
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (MESH_BATCH, MESH_PROMPT)).astype(np.int32)
+    toks1, out["one_shard"] = _mesh_generate(one, prompts)
+    seq = np.concatenate([prompts, toks1], axis=1)
+    batch = one.make_batch(prompts)
+    want, want_cache = _family_logits(one.model, one.params, batch, seq, MESH_PROMPT, max_len)
+    rms = _rms(want)
+    bounds = FAMILY_MESH_TOL[arch_id]
+    out["logit_rms"] = rms
+
+    def on(mesh, tag, timed: bool):
+        sv = _on_mesh(one, mesh)
+        rec = dict(shard_bytes=_shard_bytes_exact(one, sv, tag))
+        got, cache = _family_logits(sv.model, sv.params, batch, seq, MESH_PROMPT, max_len)
+        toks_m = got.argmax(-1).T.cpu().numpy()           # each step's greedy token
+        if timed:
+            toks_g, rec["generate"] = _mesh_generate(sv, prompts)
+            check(np.array_equal(toks_g, toks1), f"{tag}: mesh generate's tokens "
+                  f"{toks_g.tolist()} != one shard's {toks1.tolist()}")
+        full = model_zoo.mesh_full_cache(sv.model, sv.params, cache, MESH_BATCH)
+        errs = (got - want).abs().amax(dim=(1, 2)).tolist()
+        rec.update(tokens_equal=bool(np.array_equal(toks1, toks_m)), prefill_err=errs[0],
+                   decode_errs=errs[1:], max_err_over_rms=max(errs) / rms,
+                   cache=_cache_errors(want_cache, full, bounds[1], tag))
+        check(rec["tokens_equal"], f"{tag}: mesh tokens {toks_m.tolist()} != one shard's "
+              f"{toks1.tolist()}")
+        check(errs[0] <= bounds[0] and max(errs[1:]) <= bounds[1],
+              f"{tag}: mesh logits off the one-shard run's by {errs} > {bounds}")
+        return rec, toks_m, got, full
+
+    for i, m in enumerate(ms):
+        tag = f"phase18 {arch_id} m={m}"
+        rec, toks_m, got, full = on(make_lm_mesh(m, device="cuda"), tag, i == 0)
+        if nccl and i == 0:
+            # the same over a one-rank NCCL group: equal to the one-process mesh
+            with tempfile.TemporaryDirectory() as tmp:
+                store = torch.distributed.FileStore(os.path.join(tmp, "store"), 1)
+                mesh = init_lm_mesh(m, device="cuda", store=store, rank=0, world=1)
+                try:
+                    check(mesh.group is not None and mesh.world == 1,
+                          f"phase18 mesh has no NCCL group: {mesh}")
+                    rec_g, toks_g, got_g, full_g = on(mesh, tag + " nccl", False)
+                finally:
+                    mesh.close()
+            same = (np.array_equal(toks_g, toks_m) and torch.equal(got_g, got)
+                    and all(torch.equal(a, b) for a, b in zip(full_g[:-1], full[:-1])))
+            check(same, f"{tag}: the NCCL group's run differs from the one-process mesh's by "
+                  f"{float((got_g - got).abs().max())}")
+            rec["nccl"] = dict(equal=same)
+            del got_g, full_g
+        out["mesh"][m] = rec
+        del got, full
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t0
+    del one, want, want_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_families_mesh(seed: int) -> dict:
+    """Phase 18: the ssm, hybrid and encdec families on the ("data",
+    "model") mesh, serving (``_family_mesh_run`` for each of
+    ``FAMILY_MESH_RUNS``) and training (``_mesh_train_parity`` for each of
+    ``FAMILY_TRAIN_RUNS`` at ``FAMILY_TRAIN_M``).  The launch counters are
+    set to 0 before each run and read after it: the LMs launch none of the
+    port's kernels.  The shards run one after another on one card, so the
+    times say nothing of the speed on several cards."""
+    from repro_torch import kernels
+
+    t0 = time.perf_counter()
+    out = {"launches": {}, "runs": {}}
+
+    def path(name: str, fn):
+        kernels.reset_launch_counts()
+        rec = fn()
+        launches = _path_launches(f"phase18 {name}", ())
+        check(not any(launches.values()), f"phase18 {name}: the LM launched {launches}")
+        out["launches"][name] = launches
+        log(f"phase18 {name}", json.dumps(rec))
+        out["runs"][name] = rec
+
+    for arch_id, n_layers, ms, nccl in FAMILY_MESH_RUNS:
+        path(f"serve {arch_id}", lambda: _family_mesh_run(arch_id, n_layers, ms, nccl, seed))
+    for arch_id, n_layers, fields in FAMILY_TRAIN_RUNS:
+        path(f"train {arch_id}", lambda: _mesh_train_parity(
+            arch_id, n_layers, FAMILY_TRAIN_M, False, False, seed, phase="phase18", **fields))
     out["s"] = time.perf_counter() - t0
     return out
 
@@ -4747,6 +5022,14 @@ def main() -> int:
     train_mesh = phase_lm_train_mesh(args.seed)
     log("phase17 s", round(time.perf_counter() - t0, 3))
 
+    # phase 18 after phase 17's models are gone
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase18 held before", torch.cuda.memory_allocated())
+    t0 = time.perf_counter()
+    families_mesh = phase_families_mesh(args.seed)
+    log("phase18 s", round(time.perf_counter() - t0, 3))
+
     # each kernel's CUDA source, the TPU kernels' pallas_calls and its launch
     # counter come from the contract registry; the path whose run its
     # launches are read from
@@ -4826,6 +5109,9 @@ def main() -> int:
         row.update(phase16_launches={k: v[counter] for k, v in lm_mesh["launches"].items()})
         # phase 17: LM training on the mesh (none)
         row.update(phase17_launches={k: v[counter] for k, v in train_mesh["launches"].items()})
+        # phase 18: the ssm, hybrid and encdec families on the mesh (none)
+        row.update(phase18_launches={k: v[counter] for k, v in
+                                     families_mesh["launches"].items()})
         if name == "merge_sorted_reservoirs":
             late = s["late"]
             row.update(valid_slots_per_row=s["valid_slots_per_row"], late_ms=late["ms"],

@@ -35,7 +35,6 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch import steps
-from repro_torch.models import model_zoo
 from repro_torch.models.transformer import MeshLogits
 
 RETRIEVER_DTYPES = ("f32", "bf16", "int8")
@@ -126,16 +125,19 @@ class Server:
     ``IndexError`` where the family keeps a KV cache, and serves in the
     ``ssm`` family, whose decode state does not grow.
 
-    ``model_parallel`` m above 1 serves the ``dense``, ``moe`` and ``vlm``
-    families on the one-process LM mesh ``data = 1, model = m`` on
-    ``device`` (``launch.mesh.make_lm_mesh``, the one-card counterpart of
-    the reference's ``make_local_mesh``), under the arch's policy; ``mesh``
+    ``model_parallel`` m above 1 serves any of the ten architectures on
+    the one-process LM mesh ``data = 1, model = m`` on ``device``
+    (``launch.mesh.make_lm_mesh``, the one-card counterpart of the
+    reference's ``make_local_mesh``), under the arch's policy; ``mesh``
     takes an ``LMMesh`` made elsewhere (``init_lm_mesh`` over a process
     group, every rank constructing the ``Server`` and calling ``generate``
     alike), its device the server's (``device`` must then be None).  The
-    parameters are drawn from ``seed`` as at m = 1, layer by layer, each
-    shard keeping its blocks.  The ``ssm``, ``hybrid`` and ``encdec``
-    families on a mesh raise ``NotImplementedError`` (ROADMAP.md section 1)."""
+    parameters are the ones drawn from ``seed`` at m = 1, each shard
+    keeping its blocks: the transformer family draws them layer by layer
+    and cuts each layer as it comes, the ``ssm``, ``hybrid`` and
+    ``encdec`` families draw the whole tree and then cut it (their mesh
+    serving is tested on the CPU by ``tests/test_torch_lm_families_mesh.py``
+    and on the card by phase 18 of ``python3 chip_smoke.py``)."""
 
     def __init__(self, arch_id: str, *, smoke: bool = True, model_parallel: int = 1,
                  max_len: int = 256, seed: int = 0, device=None, mesh=None):
@@ -151,11 +153,6 @@ class Server:
                                  f"model={mesh.model}")
         elif model_parallel < 1:
             raise ValueError(f"model_parallel must be >= 1, got {model_parallel}")
-        if (mesh is not None or model_parallel > 1) and \
-                self.arch.family not in model_zoo.TRANSFORMER_FAMILIES:
-            raise NotImplementedError(
-                f"{arch_id}: the {self.arch.family} family on a mesh is not ported yet; see "
-                "ROADMAP.md section 1")
         self.device = resolve_device(device) if mesh is None else mesh.device
         if mesh is None and model_parallel > 1:
             mesh = make_lm_mesh(model_parallel, device=self.device)

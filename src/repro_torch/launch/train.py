@@ -16,15 +16,17 @@ reduced config of the same family, which also trains on the CPU with
     and ``StepWatchdog`` straggler flagging.
 
 The device is the card unless ``--device`` names another; without a card
-it raises.  ``--model-parallel m`` above 1 trains the transformer family
-on the one-process LM mesh ``make_lm_mesh(m)`` (data 1, model m; all
-shards on the one device) under the arch's policy, as
+it raises.  ``--model-parallel m`` above 1 trains any of the ten
+architectures on the one-process LM mesh ``make_lm_mesh(m)`` (data 1,
+model m; all shards on the one device) under the arch's policy, as
 ``Server(model_parallel=m)`` serves it; ``run(argv, mesh=)`` takes an
 ``LMMesh`` made by the caller instead (``init_lm_mesh`` over a process
 group: rank 0 writes the checkpoints).  Checkpoints are saved logical, so
 ``--resume`` restores the newest onto the current mesh whatever mesh
-wrote it (``elastic.restore_to_mesh``).  The ssm, hybrid and encdec
-families on a mesh are not ported (ROADMAP.md section 1).
+wrote it (``elastic.restore_to_mesh``).  The mesh runs of the ssm,
+hybrid and encdec families are tested on the CPU by ``PYTHONPATH=src
+python -m pytest -q tests/test_torch_lm_families_mesh.py`` and on the card
+by phase 18 of ``python3 chip_smoke.py``.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
@@ -35,6 +37,8 @@ Examples:
       --model-parallel 2 --steps 20 --ckpt-dir /tmp/ckm --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b --smoke \\
       --model-parallel 4 --steps 40 --ckpt-dir /tmp/ckm --resume --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-2.7b --smoke \\
+      --model-parallel 2 --steps 20 --device cpu
 """
 from __future__ import annotations
 

@@ -12,6 +12,18 @@ runs in the frames' dtype (bfloat16 under ``Server`` and in training).
 layer of both stacks checkpointed with ``remat``; ``prefill`` and
 ``decode_step`` build none.  The reference's ``attn_impl`` is not here
 (every config runs ``layers._sdpa_flash``).
+
+``mesh_encode``, ``mesh_decode_train``, ``mesh_loss_fn``, ``mesh_prefill``
+and ``mesh_decode_step`` run the model on an LM mesh, each layer of both
+stacks gathered inside the layer (inside its checkpoint in training) and
+run by ``transformer``'s mesh attention and FFN; the frames are cut by
+rows with the tokens, so the cross-attention memory and its cached
+``cross_k`` / ``cross_v`` are each shard's rows (and the KV heads its q
+heads read).  whisper-tiny's ``fsdp`` gathers every weight and splits
+the batch over every axis that divides it; under ``fsdp_tp`` heads that
+``model`` does not divide run whole on every shard while d_ff and the
+vocabulary split.  The mesh cache is an ``EncDecCache`` of lists, one
+tensor a local shard; ``mesh_full_cache`` puts it back together.
 """
 from __future__ import annotations
 
@@ -21,7 +33,9 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshParams, gather
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import AttnConfig, Params
 
 
@@ -211,3 +225,153 @@ def decode_step(params: Params, cfg: EncDecConfig, token: torch.Tensor, cache: E
     h = L.layernorm(params["dec_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], h)[:, 0]
     return logits, cache._replace(index=cache.index + 1)
+
+
+# ---------------------------------------------------------------------------
+# On an LM mesh (``launch.mesh.LMMesh``)
+# ---------------------------------------------------------------------------
+
+def _mesh_enc_layer(mp: MeshParams, cfg: EncDecConfig, i: int, xs: list, pos: list) -> list:
+    blk, rest = T._layer_weights(mp, "enc_blocks", i)
+    hs = [L.layernorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, _ = T._mesh_attention(mp.mesh, cfg.attn_config(False), [b["attn"] for b in blk],
+                              rest["attn"], hs, pos, "forward")
+    xs = [x + y for x, y in zip(xs, ys)]
+    hs = [L.layernorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, _ = T._mesh_ffn(mp.mesh, None, blk, rest, hs)
+    return [x + y for x, y in zip(xs, ys)]
+
+
+def _mesh_encode(mp: MeshParams, cfg: EncDecConfig, frames: list) -> list:
+    """Each shard's memory [B_j, S, D] from its frames."""
+    b, s, d = frames[0].shape
+    xs = [f + sinusoidal(s, d, f.device).to(f.dtype) for f in frames]
+    pos = [L.token_positions(f.shape[0], s, f.device) for f in frames]
+
+    def layer(i, xs):
+        return _mesh_enc_layer(mp, cfg, i, xs, pos)
+
+    for i in range(cfg.n_layers):
+        xs = L.remat_call(cfg.remat, layer, i, xs)
+    return [L.layernorm(sh["enc_norm"], x, cfg.norm_eps) for sh, x in zip(mp.shards, xs)]
+
+
+def _mesh_dec_layer(mp: MeshParams, cfg: EncDecConfig, i: int, xs: list, pos: list, mode: str,
+                    memory=None, cache=None, max_len: int = 0):
+    """Decoder layer ``i`` on each local shard: (activations, each shard's
+    self (k, v) and memory (k, v) in "prefill")."""
+    mesh = mp.mesh
+    blk, rest = T._layer_weights(mp, "dec_blocks", i)
+    hs = [L.layernorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    self_kv = None if cache is None else [(k[i], v[i]) for k, v in zip(cache.k, cache.v)]
+    ys, kvs = T._mesh_attention(mesh, cfg.attn_config(True), [b["attn"] for b in blk],
+                                rest["attn"], hs, pos, mode, self_kv,
+                                0 if cache is None else cache.index, max_len)
+    xs = [x + y for x, y in zip(xs, ys)]
+    hs = [L.layernorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    cross_kv = None if cache is None else [(k[i], v[i])
+                                           for k, v in zip(cache.cross_k, cache.cross_v)]
+    ys, mem_kv = T._mesh_attention(mesh, cfg.attn_config(False), [b["cross"] for b in blk],
+                                   rest["cross"], hs, pos, "cross", memory=memory, kv=cross_kv)
+    xs = [x + y for x, y in zip(xs, ys)]
+    hs = [L.layernorm(b["ln3"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, _ = T._mesh_ffn(mesh, None, blk, rest, hs)
+    return [x + y for x, y in zip(xs, ys)], kvs, mem_kv
+
+
+def _dec_embed(mp: MeshParams, cfg: EncDecConfig, toks: list) -> list:
+    xs = T.mesh_embed(mp, toks)
+    return [x + sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype) for x in xs]
+
+
+def _mesh_hidden(mp: MeshParams, cfg: EncDecConfig, batch: dict):
+    """(b_ax, the batch's parts, each shard's decoder hidden states after
+    the final norm), each layer of both stacks checkpointed with its
+    gather inside."""
+    b_ax, parts = T._shard_batch(mp, batch)
+    memory = _mesh_encode(mp, cfg, parts["frames"])
+
+    def layer(i, xs, memory):
+        return _mesh_dec_layer(mp, cfg, i, xs, parts["positions"], "forward", memory)[0]
+
+    xs = _dec_embed(mp, cfg, parts["tokens"])
+    for i in range(cfg.n_layers):
+        xs = L.remat_call(cfg.remat, layer, i, xs, memory)
+    return b_ax, parts, [L.layernorm(s["dec_norm"], x, cfg.norm_eps)
+                         for s, x in zip(mp.shards, xs)]
+
+
+def mesh_encode(mp: MeshParams, cfg: EncDecConfig, frames: torch.Tensor) -> torch.Tensor:
+    """``encode`` on a mesh, with an autograd graph: the memory [B, S, D]
+    gathered on every rank (``frames`` the whole batch)."""
+    b_ax, parts = T._shard_batch(mp, {"tokens": frames[..., 0], "frames": frames})
+    return gather(mp.mesh, _mesh_encode(mp, cfg, parts["frames"]), (b_ax, None, None))[0]
+
+
+def mesh_decode_train(mp: MeshParams, cfg: EncDecConfig, tokens: torch.Tensor,
+                      frames: torch.Tensor) -> torch.Tensor:
+    """``encode`` of ``frames`` and ``decode_train`` of ``tokens`` on a mesh,
+    with an autograd graph: hidden [B, T, D] after the final norm, gathered
+    on every rank."""
+    b_ax, _, hs = _mesh_hidden(mp, cfg, {"tokens": tokens, "frames": frames})
+    return gather(mp.mesh, hs, (b_ax, None, None))[0]
+
+
+def mesh_loss_fn(mp: MeshParams, cfg: EncDecConfig, batch: dict) -> torch.Tensor:
+    """``loss_fn`` on a mesh, each token counted once
+    (``transformer.mesh_cross_entropy``): the whole loss, autograd from
+    this rank's part."""
+    _, parts, hs = _mesh_hidden(mp, cfg, batch)
+    return T.mesh_cross_entropy(mp, hs, parts["labels"], cfg.z_loss)
+
+
+def _last_logits(mp: MeshParams, cfg: EncDecConfig, xs: list, b_ax):
+    return T.mesh_unembed(mp, [L.layernorm(s["dec_norm"], x[:, -1:], cfg.norm_eps)
+                               for s, x in zip(mp.shards, xs)], b_ax)
+
+
+@torch.no_grad()
+def mesh_prefill(mp: MeshParams, cfg: EncDecConfig, frames: torch.Tensor, tokens: torch.Tensor,
+                 max_len: int, cache_dtype=torch.bfloat16):
+    """``prefill`` on a mesh (``frames`` and ``tokens`` the whole batch, the
+    same on every rank): (``MeshLogits``, the ``EncDecCache`` of lists)."""
+    b_ax, parts = T._shard_batch(mp, {"tokens": tokens, "frames": frames})
+    memory = _mesh_encode(mp, cfg, parts["frames"])
+    xs = _dec_embed(mp, cfg, parts["tokens"])
+    out = {k: [[] for _ in xs] for k in EncDecCache._fields[:4]}
+    for i in range(cfg.n_layers):
+        xs, kvs, mem_kv = _mesh_dec_layer(mp, cfg, i, xs, parts["positions"], "prefill",
+                                          memory, max_len=max_len)
+        for j, ((k, v), (ck, cv)) in enumerate(zip(kvs, mem_kv)):
+            for name, a in (("k", k), ("v", v), ("cross_k", ck), ("cross_v", cv)):
+                out[name][j].append(a.to(cache_dtype))
+    return _last_logits(mp, cfg, xs, b_ax), EncDecCache(
+        **{k: [torch.stack(a) for a in v] for k, v in out.items()}, index=tokens.shape[1])
+
+
+@torch.no_grad()
+def mesh_decode_step(mp: MeshParams, cfg: EncDecConfig, token: torch.Tensor,
+                     cache: EncDecCache):
+    """``decode_step`` on a mesh, at position ``cache.index``: (``MeshLogits``,
+    the cache one token on; the self-attention caches written in place)."""
+    b_ax, parts = T._shard_batch(mp, {"tokens": token})
+    xs = T.mesh_embed(mp, parts["tokens"])
+    angle = _angles(torch.full((1,), float(cache.index), device=xs[0].device), cfg.d_model)[None]
+    xs = [x + angle.to(x.dtype) for x in xs]
+    pos = [torch.full((x.shape[0], 1), cache.index, device=x.device) for x in xs]
+    for i in range(cfg.n_layers):
+        xs, _, _ = _mesh_dec_layer(mp, cfg, i, xs, pos, "decode", cache=cache)
+    return _last_logits(mp, cfg, xs, b_ax), cache._replace(index=cache.index + 1)
+
+
+def mesh_full_cache(mp: MeshParams, cfg: EncDecConfig, cache: EncDecCache,
+                    batch: int) -> EncDecCache:
+    """The one-card ``EncDecCache`` (float32) put back together from a mesh
+    cache of ``batch`` rows."""
+    rest = T.layer_rest(mp, "dec_blocks", 0)
+    got = {}
+    for name, sub, causal in (("k", "attn", True), ("v", "attn", True),
+                              ("cross_k", "cross", False), ("cross_v", "cross", False)):
+        got[name] = T.full_kv(mp, cfg.attn_config(causal), rest[sub], getattr(cache, name),
+                              batch)
+    return EncDecCache(**got, index=cache.index)

@@ -15,6 +15,17 @@ default), written in place.  Activations are float32.  ``forward`` and
 ``remat`` (the shared block is not, as in the reference); the shared
 block's gradient sums over its uses.  ``prefill`` and ``decode_step``
 build no graph.
+
+``mesh_forward``, ``mesh_loss_fn``, ``mesh_prefill`` and
+``mesh_decode_step`` run the model on an LM mesh: the Mamba2 layers as
+``ssm_lm.mesh_layer``; the shared block, a top-level unstacked entry, is
+gathered at each of its uses and run by ``transformer``'s mesh attention
+and FFN (tensor parallel under ``fsdp_tp``), so its gradient is the sum
+over its uses in one process and over a process group alike.  The mesh
+cache is a ``HybridCache`` of lists, one tensor a local shard: the Mamba2
+states as ``ssm_lm``'s, and one KV cache a use holding the shard's rows
+and the KV heads its q heads read; ``mesh_full_cache`` puts it back
+together.
 """
 from __future__ import annotations
 
@@ -24,7 +35,10 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import MeshParams, gather
 from repro_torch.models import layers as L
+from repro_torch.models import ssm_lm
+from repro_torch.models import transformer as T
 from repro_torch.models.layers import AttnConfig, Params
 from repro_torch.models.mamba2 import (
     Mamba2Config,
@@ -191,3 +205,107 @@ def decode_step(params: Params, cfg: HybridConfig, token: torch.Tensor, cache: H
     h = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], h)[:, 0]
     return logits, cache._replace(index=cache.index + 1)
+
+
+# ---------------------------------------------------------------------------
+# On an LM mesh (``launch.mesh.LMMesh``)
+# ---------------------------------------------------------------------------
+
+def _mesh_shared(mp: MeshParams, cfg: HybridConfig, xs: list, pos: list, mode: str,
+                 kv=None, index: int = 0, max_len: int = 0):
+    """One use of the shared block on each local shard, its weights
+    gathered here: (each shard's activations after it, each shard's (k, v)
+    in "prefill")."""
+    blk, rest = T._layer_weights(mp, "shared")
+    hs = [L.rmsnorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, kvs = T._mesh_attention(mp.mesh, cfg.attn_config(), [b["attn"] for b in blk],
+                                rest["attn"], hs, pos, mode, kv, index, max_len)
+    xs = [x + y for x, y in zip(xs, ys)]
+    hs = [L.rmsnorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
+    ys, _ = T._mesh_ffn(mp.mesh, None, blk, rest, hs)
+    return [x + y for x, y in zip(xs, ys)], kvs
+
+
+def _mesh_hidden(mp: MeshParams, cfg: HybridConfig, batch: dict):
+    """(the batch's parts, each shard's hidden states after the final
+    norm), each Mamba2 layer checkpointed with its gather inside; the
+    shared block is not checkpointed, as in the reference."""
+    _, parts = T._shard_batch(mp, batch)
+
+    def layer(i, xs):
+        return ssm_lm.mesh_layer(mp, cfg, i, xs, "forward")[0]
+
+    xs = T.mesh_embed(mp, parts["tokens"])
+    for a in range(cfg.n_apps):
+        for i in range(a * cfg.attn_every, (a + 1) * cfg.attn_every):
+            xs = L.remat_call(cfg.remat, layer, i, xs)
+        xs, _ = _mesh_shared(mp, cfg, xs, parts["positions"], "forward")
+    return parts, [L.rmsnorm(s["final_norm"], x, cfg.norm_eps) for s, x in zip(mp.shards, xs)]
+
+
+def mesh_forward(mp: MeshParams, cfg: HybridConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """``forward`` on a mesh, with an autograd graph: hidden [B, T, D]
+    after the final norm, gathered on every rank."""
+    _, hs = _mesh_hidden(mp, cfg, {"tokens": tokens})
+    return gather(mp.mesh, hs, (T.batch_axis(mp, tokens.shape[0]), None, None))[0]
+
+
+def mesh_loss_fn(mp: MeshParams, cfg: HybridConfig, batch: dict) -> torch.Tensor:
+    """``loss_fn`` on a mesh, each token counted once
+    (``transformer.mesh_cross_entropy``): the whole loss, autograd from
+    this rank's part."""
+    parts, hs = _mesh_hidden(mp, cfg, batch)
+    return T.mesh_cross_entropy(mp, hs, parts["labels"], cfg.z_loss)
+
+
+@torch.no_grad()
+def mesh_prefill(mp: MeshParams, cfg: HybridConfig, tokens: torch.Tensor, max_len: int,
+                 cache_dtype=torch.bfloat16):
+    """``prefill`` on a mesh (``tokens`` the whole batch, the same on every
+    rank): (``MeshLogits``, the ``HybridCache`` of lists)."""
+    b_ax, parts = T._shard_batch(mp, {"tokens": tokens})
+    xs = T.mesh_embed(mp, parts["tokens"])
+    got = {}
+    ks, vs = [[] for _ in xs], [[] for _ in xs]
+    for a in range(cfg.n_apps):
+        for i in range(a * cfg.attn_every, (a + 1) * cfg.attn_every):
+            xs, sts = ssm_lm.mesh_layer(mp, cfg, i, xs, "prefill")
+            ssm_lm._collect(got, sts)
+        xs, kvs = _mesh_shared(mp, cfg, xs, parts["positions"], "prefill", max_len=max_len)
+        for j, (k, v) in enumerate(kvs):
+            ks[j].append(k.to(cache_dtype))
+            vs[j].append(v.to(cache_dtype))
+    logits = T._last_logits(mp, cfg, xs, b_ax)
+    return logits, HybridCache(conv=[torch.stack(c) for c in got["conv"]],
+                               ssm=[torch.stack(s) for s in got["ssm"]],
+                               k=[torch.stack(k) for k in ks], v=[torch.stack(v) for v in vs],
+                               index=tokens.shape[1])
+
+
+@torch.no_grad()
+def mesh_decode_step(mp: MeshParams, cfg: HybridConfig, token: torch.Tensor,
+                     cache: HybridCache):
+    """``decode_step`` on a mesh, at position ``cache.index``: (``MeshLogits``,
+    the cache one token on; each shard's states and KV caches written in
+    place)."""
+    b_ax, parts = T._shard_batch(mp, {"tokens": token})
+    xs = T.mesh_embed(mp, parts["tokens"])
+    for a in range(cfg.n_apps):
+        for i in range(a * cfg.attn_every, (a + 1) * cfg.attn_every):
+            xs, sts = ssm_lm.mesh_layer(mp, cfg, i, xs, "decode", cache)
+            ssm_lm._write(cache, i, sts)
+        xs, _ = _mesh_shared(mp, cfg, xs, None, "decode",
+                             [(k[a], v[a]) for k, v in zip(cache.k, cache.v)], cache.index)
+    return T._last_logits(mp, cfg, xs, b_ax), cache._replace(index=cache.index + 1)
+
+
+def mesh_full_cache(mp: MeshParams, cfg: HybridConfig, cache: HybridCache,
+                    batch: int) -> HybridCache:
+    """The one-card ``HybridCache`` (float32) put back together from a mesh
+    cache of ``batch`` rows."""
+    conv, ssm = ssm_lm.full_states(mp, cfg.mamba_config(), cache.conv, cache.ssm, batch)
+    rest = T.layer_rest(mp, "shared")["attn"]
+    return HybridCache(conv=conv, ssm=ssm,
+                       k=T.full_kv(mp, cfg.attn_config(), rest, cache.k, batch),
+                       v=T.full_kv(mp, cfg.attn_config(), rest, cache.v, batch),
+                       index=cache.index)

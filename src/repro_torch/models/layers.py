@@ -257,13 +257,10 @@ def _sdpa_flash(q, k, v, *, causal: bool, q_chunk: int, k_chunk: int, q_offset: 
     return out[:, :t].to(q.dtype)
 
 
-def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
-              kv: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
-    """x: [B, T, D]; positions: [B, T], or [3, B, T] for M-RoPE.  With
-    ``kv`` (the cross-attention memory's keys and values, [B, S, KV, hd]
-    each) the queries attend to it, unmasked; the reference projects the
-    query's own keys and values there too and drops them, so they are not
-    computed here."""
+def attend(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
+           kv: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """``attention`` before its output projection: the heads' outputs
+    [B, T, H*hd]."""
     if kv is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
     else:
@@ -271,7 +268,17 @@ def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tens
     out = _sdpa_flash(q, k, v, causal=cfg.causal and kv is None, q_chunk=cfg.q_chunk,
                       k_chunk=cfg.k_chunk)
     b, t = x.shape[:2]
-    return dense(p["wo"], out.reshape(b, t, cfg.n_heads * cfg.head_dim))
+    return out.reshape(b, t, cfg.n_heads * cfg.head_dim)
+
+
+def attention(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor, *,
+              kv: tuple[torch.Tensor, torch.Tensor] | None = None) -> torch.Tensor:
+    """x: [B, T, D]; positions: [B, T], or [3, B, T] for M-RoPE.  With
+    ``kv`` (the cross-attention memory's keys and values, [B, S, KV, hd]
+    each) the queries attend to it, unmasked; the reference projects the
+    query's own keys and values there too and drops them, so they are not
+    computed here."""
+    return dense(p["wo"], attend(p, cfg, x, positions, kv=kv))
 
 
 def attend_prefill(p: Params, cfg: AttnConfig, x: torch.Tensor, positions: torch.Tensor,

@@ -17,7 +17,15 @@ server and the tests use:
 ``batch`` holds ``tokens`` [B, T]; for the ``vlm`` family also M-RoPE
 ``positions`` [3, B, T], and for ``encdec`` the encoder's ``frames``
 [B, S, D].  The families: ``dense``, ``moe`` and ``vlm``
-(``transformer``), ``encdec``, ``ssm`` (``ssm_lm``) and ``hybrid``.  The
+(``transformer``), ``encdec``, ``ssm`` (``ssm_lm``) and ``hybrid``; every
+family builds on an LM mesh too (``build(mesh=, policy=)``: the modules'
+``mesh_*`` functions, the parameters ``sharding.MeshParams``), where
+``mesh_full_cache`` puts an ssm, hybrid or encdec mesh cache back
+together.  The mesh paths of
+the ssm, hybrid and encdec families are held against the JAX package on
+the CPU by ``PYTHONPATH=src python -m pytest -q
+tests/test_torch_lm_families_mesh.py`` and run at full width on the card
+by phase 18 of ``python3 chip_smoke.py``.  The
 reference's other ``*_spec`` functions (abstract inputs for JAX's
 ahead-of-time lowering of prefill and decode) are not here.
 """
@@ -57,34 +65,63 @@ def _train_spec(family: str, d_model: int, b: int, t: int) -> dict:
 
 
 def _build_on_mesh(cfg: Any, family: str, mesh, policy: str) -> Model:
-    if family not in TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"the {family} family on a mesh is not ported yet; see ROADMAP.md section 1")
     if policy not in sharding.POLICIES:
         raise ValueError(f"unknown policy {policy!r}; one of {sharding.POLICIES}")
+    if family in TRANSFORMER_FAMILIES:
+        def init(generator, device=None):
+            dev = mesh.device if device is None else device
+            return sharding.shard_parts(transformer.init_parts(cfg, generator, dev), mesh,
+                                        family, policy, cfg.n_layers)
 
-    def init(generator, device=None):
-        dev = mesh.device if device is None else device
-        return sharding.shard_parts(transformer.init_parts(cfg, generator, dev), mesh, family,
-                                    policy, cfg.n_layers)
+        def forward(params, batch):
+            return transformer.mesh_forward(params, cfg, batch["tokens"],
+                                            positions=batch.get("positions"))[0]
 
-    def forward(params, batch):
-        return transformer.mesh_forward(params, cfg, batch["tokens"],
-                                        positions=batch.get("positions"))[0]
+        def prefill(params, batch, max_len):
+            return transformer.mesh_prefill(params, cfg, batch["tokens"], max_len,
+                                            positions=batch.get("positions"))
+        module = transformer
+    elif family == "encdec":
+        def forward(params, batch):
+            return encdec.mesh_decode_train(params, cfg, batch["tokens"], batch["frames"])
 
-    def prefill(params, batch, max_len):
-        return transformer.mesh_prefill(params, cfg, batch["tokens"], max_len,
-                                        positions=batch.get("positions"))
+        def prefill(params, batch, max_len):
+            return encdec.mesh_prefill(params, cfg, batch["frames"], batch["tokens"], max_len)
+        module = encdec
+    elif family in ("ssm", "hybrid"):
+        module = ssm_lm if family == "ssm" else hybrid
+
+        def forward(params, batch):
+            return module.mesh_forward(params, cfg, batch["tokens"])
+
+        def prefill(params, batch, max_len):
+            return module.mesh_prefill(params, cfg, batch["tokens"], max_len)
+    else:
+        raise ValueError(f"unknown family {family!r}")
+    if family not in TRANSFORMER_FAMILIES:
+        def init(generator, device=None):
+            # the one-card parameters drawn from the seed, then cut
+            dev = mesh.device if device is None else device
+            return sharding.shard_params(module.init(cfg, generator, device=dev), mesh, family,
+                                         policy)
 
     def decode(params, token, cache):
-        return transformer.mesh_decode_step(params, cfg, token, cache)
+        return module.mesh_decode_step(params, cfg, token, cache)
 
     def loss(params, batch):
-        return transformer.mesh_loss_fn(params, cfg, batch)
+        return module.mesh_loss_fn(params, cfg, batch)
 
     return Model(family=family, config=cfg, init=init, forward=forward, loss_fn=loss,
                  prefill=prefill, decode_step=decode,
                  train_batch_spec=lambda b, t: _train_spec(family, cfg.d_model, b, t))
+
+
+def mesh_full_cache(model: Model, params, cache, batch: int):
+    """A mesh cache of ``batch`` rows of the ssm, hybrid or encdec family
+    put back together as the one-card cache (float32 tensors), each entry
+    checked alike on every shard that holds it."""
+    module = {"encdec": encdec, "ssm": ssm_lm, "hybrid": hybrid}[model.family]
+    return module.mesh_full_cache(params, model.config, cache, batch)
 
 
 def build(cfg: Any, family: str, *, mesh=None, policy: str = "fsdp_tp") -> Model:

@@ -13,7 +13,10 @@ autograd records, as the reference's ``jax.checkpoint``.  ``prefill`` and
 ``decode_step`` build no graph.  ``mesh_forward``, ``mesh_loss_fn``,
 ``mesh_prefill`` and ``mesh_decode_step`` run the same model on an LM mesh
 (the section at the end says how each policy lays it out): the first two
-record graphs for training, the last two serve.
+record graphs for training, the last two serve.  That section's attention,
+FFN, embedding, unembedding, loss and cache helpers also carry the
+hybrid's shared block and the encoder-decoder on the mesh (``hybrid``,
+``encdec``).
 """
 from __future__ import annotations
 
@@ -344,91 +347,174 @@ def _layer_weights(mp: MeshParams, key: str, index=None):
     return gather_tree(mp.mesh, trees, specs, axes), rest_tree(trees[0], specs, axes)
 
 
+def layer_rest(mp: MeshParams, key: str, index=None) -> dict:
+    """The specs ``_layer_weights`` gives ``mp.shards[j][key]`` (``[index]``)
+    after its gather, without gathering."""
+    tree = mp.shards[0][key] if index is None else mp.shards[0][key][index]
+    specs = mp.specs[key] if index is None else mp.specs[key][index]
+    return rest_tree(tree, specs, _gathered(mp.policy))
+
+
+def batch_axis(mp: MeshParams, batch: int):
+    """The batch entry of a [batch, T] token batch on ``mp``'s mesh."""
+    return batch_spec("tokens", torch.empty((batch, 1), device="meta"), mp.mesh.shape,
+                      mp.policy)[0]
+
+
+def batch_rows(mp: MeshParams, batch: int) -> list[slice]:
+    """Each local shard's rows of a [batch, ...] batch."""
+    return _rows(mp.mesh, batch_axis(mp, batch), batch)
+
+
 def _row_parallel(mesh, parts: list, dtype) -> list:
     """Partial products (float32) summed over `model` and rounded once."""
     return [y.to(dtype) for y in mesh.psum(parts, "model")]
 
 
-def _mesh_attention(mesh, cfg: TransformerConfig, blk: list, rest: dict, hs: list, pos: list,
-                    mode: str, cache, i: int, max_len: int):
-    """The attention sublayer on each local shard (its input ``hs[j]`` the
-    normed activations of its rows): returns (y list, (k, v) list or
-    None)."""
-    acfg = cfg.attn_config()
-    h_n, kv_n, hd, m_n = cfg.n_heads, cfg.n_kv_heads, cfg.hd, mesh.model
-    g = h_n // kv_n
-    ra = rest["attn"]
-    q_split = _on_model(ra["wq"]["w"][1])
-    heads_split = q_split and h_n % m_n == 0
-    kv_split = _on_model(ra["wk"]["w"][1])
-    kv_aligned = kv_split and heads_split and kv_n % m_n == 0
-    dev = hs[0].device
-    q_sel, kv_sel, cfgs = [], [], []
+class _Heads(NamedTuple):
+    """One local shard's attention heads: its q heads [lo, hi), the KV
+    heads they read (a slice, or a tensor of one KV head a q head where the
+    groups are uneven) and the attention config of those heads."""
+    lo: int
+    hi: int
+    kv: Any
+    cfg: AttnConfig
+
+
+def shard_heads(n_heads: int, n_groups: int, m: int, coord: int | None, device) -> tuple:
+    """(lo, hi, the groups they read, how many) of the heads [lo, hi) that
+    the shard at `model` coordinate ``coord`` of ``m`` runs (``coord``
+    None: all of them), ``n_heads`` heads in ``n_groups`` equal groups
+    (attention's KV heads, Mamba2's B / C groups).  The groups are a slice
+    where the heads cover whole groups or lie in one group, else a tensor
+    of one group a head."""
+    lo, hi = (0, n_heads) if coord is None else (coord * n_heads // m,
+                                                 (coord + 1) * n_heads // m)
+    rep = n_heads // n_groups
+    g_lo, g_hi = lo // rep, (hi - 1) // rep + 1
+    if (lo % rep == 0 and (hi - lo) % rep == 0) or g_hi - g_lo == 1:
+        return lo, hi, slice(g_lo, g_hi), g_hi - g_lo
+    return lo, hi, torch.arange(lo, hi, device=device) // rep, hi - lo
+
+
+def head_layout(mesh, acfg: AttnConfig, rest: dict) -> tuple[bool, list]:
+    """(whether the q heads are split over `model`, each local shard's
+    ``_Heads``) of an attention block whose gathered weights keep the specs
+    ``rest``: a shard runs H / model q heads where wq's columns are over
+    `model` and `model` divides H, else all of them."""
+    heads_split = _on_model(rest["wq"]["w"][1]) and acfg.n_heads % mesh.model == 0
+    out = []
     for c in mesh.local:
-        lo, hi = ((c["model"] * h_n // m_n, (c["model"] + 1) * h_n // m_n) if heads_split
-                  else (0, h_n))
-        k_lo, k_hi = lo // g, (hi - 1) // g + 1
-        q_sel.append(slice(lo * hd, hi * hd))
-        if (lo % g == 0 and (hi - lo) % g == 0) or k_hi - k_lo == 1:
-            kv_sel.append(slice(k_lo * hd, k_hi * hd))
-            cfgs.append(dataclasses.replace(acfg, n_heads=hi - lo, n_kv_heads=k_hi - k_lo))
-        else:    # uneven groups: one KV head a q head
-            heads = torch.arange(lo, hi, device=dev) // g
-            kv_sel.append((heads[:, None] * hd + torch.arange(hd, device=dev)).reshape(-1))
-            cfgs.append(dataclasses.replace(acfg, n_heads=hi - lo, n_kv_heads=hi - lo))
-    # each shard's projections: its own column block where that is exactly
-    # its heads (``aligned``); else the whole projection (gathered over
-    # `model` where split) and ``"cols"``, so its heads are cut from the
-    # whole product as the one-shard model forms it
-    proj = {}
+        lo, hi, kv, kv_n = shard_heads(acfg.n_heads, acfg.n_kv_heads, mesh.model,
+                                       c["model"] if heads_split else None, mesh.device)
+        out.append(_Heads(lo, hi, kv, dataclasses.replace(acfg, n_heads=hi - lo,
+                                                          n_kv_heads=kv_n)))
+    return heads_split, out
+
+
+def _head_cols(sel, hd: int, device):
+    """The columns of heads ``sel`` (a slice or a tensor of head ids) in a
+    [..., heads * hd] projection."""
+    if isinstance(sel, slice):
+        return slice(sel.start * hd, sel.stop * hd)
+    return (sel[:, None] * hd + torch.arange(hd, device=device)).reshape(-1)
+
+
+def _attn_proj(mesh, acfg: AttnConfig, blk: list, rest: dict, heads: list,
+               heads_split: bool) -> list:
+    """Each local shard's q / k / v projections (and qk norms): its own
+    column block where that is exactly its heads (``aligned``); else the
+    whole projection (gathered over `model` where split) and ``"cols"``,
+    so its heads are cut from the whole product as the one-shard model
+    forms it."""
+    hd, m_n = acfg.head_dim, mesh.model
+    q_split = _on_model(rest["wq"]["w"][1])
+    kv_split = _on_model(rest["wk"]["w"][1])
+    kv_aligned = kv_split and heads_split and acfg.n_kv_heads % m_n == 0
+    dev = blk[0]["wq"]["w"].device
+    q_sel = [slice(hs.lo * hd, hs.hi * hd) for hs in heads]
+    kv_sel = [_head_cols(hs.kv, hd, dev) for hs in heads]
+    proj = [{} for _ in blk]
     for name, split, aligned, sel in (("wq", q_split, heads_split, q_sel),
                                       ("wk", kv_split, kv_aligned, kv_sel),
                                       ("wv", kv_split, kv_aligned, kv_sel)):
         own = split and aligned
-        ws = [b["attn"][name]["w"] for b in blk]
+        ws = [b[name]["w"] for b in blk]
         if split and not own:
             ws = mesh.all_gather(ws, "model", -1)
-        proj[name] = [{"w": w} if own else {"w": w, "cols": c} for w, c in zip(ws, sel)]
-        if "b" in blk[0]["attn"][name]:
-            bs = [b["attn"][name]["b"] for b in blk]
-            b_split = _on_model(ra[name]["b"][0])
+        ds = [{"w": w} if own else {"w": w, "cols": c} for w, c in zip(ws, sel)]
+        if "b" in blk[0][name]:
+            bs = [b[name]["b"] for b in blk]
+            b_split = _on_model(rest[name]["b"][0])
             if b_split and not own:
                 bs = mesh.all_gather(bs, "model", -1)
             elif own and not b_split:          # a whole bias beside a weight block
                 bs = [bias[c] for bias, c in zip(bs, sel)]
-            for d, bias in zip(proj[name], bs):
+            for d, bias in zip(ds, bs):
                 d["b"] = bias
-    outs, kvs = [], []
-    for j, (h, b) in enumerate(zip(hs, blk)):
-        p_loc = {k: proj[k][j] for k in proj}
+        for p, d in zip(proj, ds):
+            p[name] = d
+    for p, b in zip(proj, blk):
         for k in ("q_norm", "k_norm"):
-            if k in b["attn"]:
-                p_loc[k] = b["attn"][k]
+            if k in b:
+                p[k] = b[k]
+    return proj
+
+
+def _mesh_attention(mesh, acfg: AttnConfig, blk: list, rest: dict, hs: list, pos: list,
+                    mode: str, cache=None, index: int = 0, max_len: int = 0, memory=None,
+                    kv=None):
+    """An attention sublayer on each local shard, ``blk`` each shard's
+    gathered attention weights and ``rest`` their specs after the gather,
+    ``hs[j]`` the normed activations of shard j's rows.  ``mode``:
+    "forward" (no cache), "prefill" (returns each shard's [B, max_len, KV,
+    hd] (k, v)), "decode" (``cache`` each shard's (k, v), written at
+    ``index``) or "cross" (the queries read each shard's memory keys and
+    values: ``kv``, or projected from ``memory`` and returned).  Returns
+    (y list, (k, v) list or None)."""
+    hd, m_n = acfg.head_dim, mesh.model
+    heads_split, heads = head_layout(mesh, acfg, rest)
+    proj = _attn_proj(mesh, acfg, blk, rest, heads, heads_split)
+    outs, kvs = [], None
+    if mode == "cross" and kv is None:
+        kvs = []
+        for p, hl, mem in zip(proj, heads, memory):
+            b, s, _ = mem.shape
+            kvs.append((L._proj(p["wk"], mem).reshape(b, s, hl.cfg.n_kv_heads, hd),
+                        L._proj(p["wv"], mem).reshape(b, s, hl.cfg.n_kv_heads, hd)))
+        kv = kvs
+    elif mode == "prefill":
+        kvs = []
+    for j, (h, p, hl) in enumerate(zip(hs, proj, heads)):
         if mode == "decode":
-            o, _ = L.attend_decode(p_loc, cfgs[j], h, cache.index,
-                                   (cache.k[j][i], cache.v[j][i]), cache.index)
+            o, _ = L.attend_decode(p, hl.cfg, h, index, cache[j], index)
+        elif mode == "cross":
+            o = L.attend(p, hl.cfg, h, pos[j], kv=kv[j])
+        elif mode == "prefill":
+            o, c = L.attend_prefill(p, hl.cfg, h, pos[j], max_len)
+            kvs.append(c)
         else:
-            o, kv = L.attend_prefill(p_loc, cfgs[j], h, pos[j],
-                                     max_len if mode == "prefill" else h.shape[1])
-            kvs.append(kv)
+            o = L.attend(p, hl.cfg, h, pos[j])
         outs.append(o)
-    if _on_model(ra["wo"]["w"][0]):
-        width = h_n * hd // m_n
+    if _on_model(rest["wo"]["w"][0]):
+        width = acfg.n_heads * hd // m_n
         parts = [(o if heads_split else o[..., c["model"] * width:(c["model"] + 1) * width])
-                 .float() @ b["attn"]["wo"]["w"].float()
+                 .float() @ b["wo"]["w"].float()
                  for o, b, c in zip(outs, blk, mesh.local)]
         ys = _row_parallel(mesh, parts, hs[0].dtype)
     else:
-        ys = [L.dense(b["attn"]["wo"], o) for o, b in zip(outs, blk)]
-    return ys, (kvs if mode == "prefill" else None)
+        ys = [L.dense(b["wo"], o) for o, b in zip(outs, blk)]
+    return ys, kvs
 
 
-def _mesh_ffn(mesh, cfg: TransformerConfig, blk: list, rest: dict, hs: list, x_spec: tuple,
-              use_ep: bool):
-    """The FFN sublayer on each local shard: (y list, aux)."""
-    if cfg.moe is not None:
-        kw = dict(top_k=cfg.moe.top_k, n_experts=cfg.moe.n_experts,
-                  capacity_factor=cfg.moe.capacity_factor)
+def _mesh_ffn(mesh, moe_spec, blk: list, rest: dict, hs: list, x_spec: tuple = (),
+              use_ep: bool = False):
+    """The FFN sublayer on each local shard (``blk`` each shard's gathered
+    block, holding ``"moe"`` where ``moe_spec`` is given, else ``"mlp"``):
+    (y list, aux)."""
+    if moe_spec is not None:
+        kw = dict(top_k=moe_spec.top_k, n_experts=moe_spec.n_experts,
+                  capacity_factor=moe_spec.capacity_factor)
         p = [b["moe"] for b in blk]
         w_specs = {k: rest["moe"][k] for k in EXPERT_STACKS}
         if use_ep:
@@ -445,28 +531,85 @@ def _mesh_ffn(mesh, cfg: TransformerConfig, blk: list, rest: dict, hs: list, x_s
     return _row_parallel(mesh, parts, hs[0].dtype), zero
 
 
-def _mesh_embed(mp: MeshParams, cfg: TransformerConfig, toks: list) -> list:
+def mesh_embed(mp: MeshParams, toks: list, dtype=None) -> list:
+    """Each local shard's token embeddings (in ``dtype`` where given): a
+    masked lookup of its vocabulary block, summed over `model`, where the
+    table's rows are over `model`."""
     mesh = mp.mesh
     table, rest = _layer_weights(mp, "embed")
+    cast = (lambda x: x) if dtype is None else (lambda x: x.to(dtype))
     if not _on_model(rest["table"][0]):
-        return [L.embed(t, tok).to(cfg.act_dtype) for t, tok in zip(table, toks)]
+        return [cast(L.embed(t, tok)) for t, tok in zip(table, toks)]
     parts = []
     for t, tok, c in zip(table, toks, mesh.local):
         v_loc = t["table"].shape[0]
         rel = tok - c["model"] * v_loc
         ok = (rel >= 0) & (rel < v_loc)
         parts.append(t["table"][rel.clamp(0, v_loc - 1)] * ok[..., None].to(t["table"].dtype))
-    return [x.to(cfg.act_dtype) for x in mesh.psum(parts, "model")]
+    return [cast(x) for x in mesh.psum(parts, "model")]
 
 
-def _mesh_unembed(mp: MeshParams, cfg: TransformerConfig, xs: list, b_ax) -> MeshLogits:
-    """Final norm and the tied unembedding of each shard's last position."""
+def mesh_unembed(mp: MeshParams, hs: list, b_ax) -> MeshLogits:
+    """The tied unembedding of each shard's normed last position ``hs[j]``
+    [B_j, 1, D]."""
+    table, rest = _layer_weights(mp, "embed")
+    parts = [L.unembed(t, h)[:, 0] for t, h in zip(table, hs)]
+    return MeshLogits(parts, (b_ax, "model" if _on_model(rest["table"][0]) else None), mp.mesh)
+
+
+def mesh_cross_entropy(mp: MeshParams, hs: list, labels: list, z_loss: float,
+                       extra=None) -> torch.Tensor:
+    """The mean cross entropy (with z-loss) of each shard's hidden states
+    ``hs[j]`` against ``labels[j]`` through the tied unembedding, each
+    token counted once (plus ``extra``, this rank's part of another term).
+    Autograd runs from this rank's part; the value is the whole loss,
+    summed over the ranks."""
     mesh = mp.mesh
     table, rest = _layer_weights(mp, "embed")
-    norm = [s["final_norm"] for s in mp.shards]
-    parts = [L.unembed(t, L.rmsnorm(n, x[:, -1:], cfg.norm_eps))[:, 0]
-             for t, n, x in zip(table, norm, xs)]
-    return MeshLogits(parts, (b_ax, "model" if _on_model(rest["table"][0]) else None), mesh)
+    logits = [L.unembed(t, h) for t, h in zip(table, hs)]
+    if _on_model(rest["table"][0]):
+        logits = mesh.all_gather(logits, "model", -1)
+    weight = 1.0 / mesh.n_shards
+    held = {}
+    for lg, lab in zip(logits, labels):
+        held.setdefault(id(lg), [lg, lab, 0.0])[2] += weight
+    local = sum(L.cross_entropy(lg, lab, z_loss=z_loss) * w for lg, lab, w in held.values())
+    if extra is not None:
+        local = local + extra
+    if mesh.group is None:
+        return local
+    return mesh.total(local) + (local - local.detach())     # the value the total's, bit for bit
+
+
+def put_back(parts: list, rows: list, sels: list, shape: tuple, bdim: int, sdim: int):
+    """One tensor of ``shape`` (float32) from each local shard's part,
+    ``parts[j]`` holding the batch rows ``rows[j]`` (along ``bdim``) and
+    the entries ``sels[j]`` (a slice or an index tensor along ``sdim``);
+    shards holding the same entries must agree."""
+    full = torch.full(shape, float("nan"), device=parts[0].device)
+    for part, r, s in zip(parts, rows, sels):
+        idx = [slice(None)] * len(shape)
+        idx[bdim] = r
+        view = full[tuple(idx)]
+        sidx = [slice(None)] * len(shape)
+        sidx[sdim] = s
+        seen = view[tuple(sidx)]
+        done = ~torch.isnan(seen)
+        if not torch.equal(seen[done], part.float()[done]):
+            raise ValueError("two shards hold different values of one cache entry")
+        view[tuple(sidx)] = part.float()
+    if torch.isnan(full).any():
+        raise ValueError("no shard holds some cache entries")
+    return full
+
+
+def full_kv(mp: MeshParams, acfg: AttnConfig, rest: dict, parts: list, batch: int):
+    """The whole [n, B, S, KV, hd] KV cache (float32) from each local
+    shard's [n, B_j, S, KV_j, hd] (its rows and the KV heads its q heads
+    read), ``rest`` the attention block's specs after the gather."""
+    _, heads = head_layout(mp.mesh, acfg, rest)
+    shape = (parts[0].shape[0], batch, parts[0].shape[2], acfg.n_kv_heads, acfg.head_dim)
+    return put_back(parts, batch_rows(mp, batch), [h.kv for h in heads], shape, 1, 3)
 
 
 def _shard_batch(mp: MeshParams, batch: dict):
@@ -495,10 +638,13 @@ def _mesh_block(mp: MeshParams, cfg: TransformerConfig, i: int, xs: list, pos: l
     activations after it, aux, each shard's (k, v) in ``"prefill"``)."""
     blk, rest = _layer_weights(mp, "blocks", i)
     hs = [L.rmsnorm(b["ln1"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
-    ys, kvs = _mesh_attention(mp.mesh, cfg, blk, rest, hs, pos, mode, cache, i, max_len)
+    kv = None if cache is None else [(k[i], v[i]) for k, v in zip(cache.k, cache.v)]
+    ys, kvs = _mesh_attention(mp.mesh, cfg.attn_config(), [b["attn"] for b in blk],
+                              rest["attn"], hs, pos, mode, kv,
+                              0 if cache is None else cache.index, max_len)
     xs = [x + y for x, y in zip(xs, ys)]
     hs = [L.rmsnorm(b["ln2"], x, cfg.norm_eps) for b, x in zip(blk, xs)]
-    ys, aux = _mesh_ffn(mp.mesh, cfg, blk, rest, hs, x_spec, use_ep)
+    ys, aux = _mesh_ffn(mp.mesh, cfg.moe, blk, rest, hs, x_spec, use_ep)
     return [x + y for x, y in zip(xs, ys)], aux, kvs
 
 
@@ -507,7 +653,7 @@ def _mesh_run(mp: MeshParams, cfg: TransformerConfig, tokens, positions, mode: s
     """The layers on the mesh for serving: (b_ax, each shard's final
     activations, the cache)."""
     b_ax, parts = _shard_batch(mp, {"tokens": tokens, "positions": positions})
-    xs = _mesh_embed(mp, cfg, parts["tokens"])
+    xs = mesh_embed(mp, parts["tokens"], cfg.act_dtype)
     use_ep = cfg.moe_impl == "ep_a2a" and mp.mesh.model > 1 and mode != "decode"
     cache_k = cache_v = None
     for i in range(cfg.n_layers):
@@ -543,7 +689,7 @@ def _mesh_hidden(mp: MeshParams, cfg: TransformerConfig, batch: dict):
             aux = aux + a
         return xs, aux
 
-    xs = _mesh_embed(mp, cfg, parts["tokens"])
+    xs = mesh_embed(mp, parts["tokens"], cfg.act_dtype)
     aux = torch.zeros((), device=xs[0].device)
     for layers in _remat_groups(cfg, list(range(cfg.n_layers))):
         xs, aux = L.remat_call(cfg.remat, run, layers, xs, aux)
@@ -559,7 +705,15 @@ def mesh_prefill(mp: MeshParams, cfg: TransformerConfig, tokens: torch.Tensor, m
     last token, the ``KVCache`` of lists: one tensor a local shard)."""
     b_ax, xs, cache = _mesh_run(mp, cfg, tokens, positions, "prefill", max_len,
                                 cache_dtype=cache_dtype)
-    return _mesh_unembed(mp, cfg, xs, b_ax), cache
+    return _last_logits(mp, cfg, xs, b_ax), cache
+
+
+def _last_logits(mp: MeshParams, cfg, xs: list, b_ax) -> MeshLogits:
+    """The final norm (``final_norm``, an RMSNorm at ``cfg.norm_eps``) and
+    the tied unembedding of each shard's last position (the ssm and hybrid
+    families' too)."""
+    return mesh_unembed(mp, [L.rmsnorm(s["final_norm"], x[:, -1:], cfg.norm_eps)
+                             for s, x in zip(mp.shards, xs)], b_ax)
 
 
 @torch.no_grad()
@@ -571,7 +725,7 @@ def mesh_decode_step(mp: MeshParams, cfg: TransformerConfig, token: torch.Tensor
     The MoE runs the default dispatch (``moe_impl`` aside), as the
     reference's decode does."""
     b_ax, xs, cache = _mesh_run(mp, cfg, token, None, "decode", cache=cache)
-    return _mesh_unembed(mp, cfg, xs, b_ax), cache
+    return _last_logits(mp, cfg, xs, b_ax), cache
 
 
 def mesh_forward(mp: MeshParams, cfg: TransformerConfig, tokens: torch.Tensor,
@@ -591,18 +745,6 @@ def mesh_loss_fn(mp: MeshParams, cfg: TransformerConfig, batch: dict) -> torch.T
     rank's part of the loss (its shards' weighted cross entropies, and the
     aux over the number of ranks); the value is the whole loss, summed over
     the ranks."""
-    mesh = mp.mesh
     b_ax, parts, hs, aux = _mesh_hidden(mp, cfg, batch)
-    table, rest = _layer_weights(mp, "embed")
-    logits = [L.unembed(t, h) for t, h in zip(table, hs)]
-    if _on_model(rest["table"][0]):
-        logits = mesh.all_gather(logits, "model", -1)
-    weight = 1.0 / mesh.n_shards
-    held = {}
-    for lg, lab in zip(logits, parts["labels"]):
-        held.setdefault(id(lg), [lg, lab, 0.0])[2] += weight
-    local = sum(L.cross_entropy(lg, lab, z_loss=cfg.z_loss) * w for lg, lab, w in held.values())
-    local = local + cfg.aux_coef * aux / mesh.world
-    if mesh.group is None:
-        return local
-    return mesh.total(local) + (local - local.detach())     # the value the total's, bit for bit
+    return mesh_cross_entropy(mp, hs, parts["labels"], cfg.z_loss,
+                              extra=cfg.aux_coef * aux / mp.mesh.world)

@@ -6,10 +6,13 @@ on the CPU, as the reference's own ``tests/test_moe_ep.py`` runs it) reads
 the parameters the parent wrote (the port's ``init`` carried to the
 reference's stacked layout with ``convert.lm_to_arrays``) and writes, for
 each case, the reference's unsharded prefill logits, three greedy decode
-steps' logits and tokens, and the KV caches after them: the seven transformer-family
-smoke configs in float32 (jitted, no mesh), and four of them in their
-full-size configs' dtypes (jitted with ``xla_allow_excess_precision`` off,
-so XLA rounds after every op as the port does).  It also runs
+steps' logits and tokens, and the caches after them (each field but the
+index: the KV caches; the ssm family's conv windows and SSM states; the
+hybrid's both; the encoder-decoder's self and memory keys and values):
+the ten smoke configs in float32 (jitted, no mesh; whisper on float32
+frames from numpy), and four of them in their full-size configs' dtypes
+(jitted with ``xla_allow_excess_precision`` off, so XLA rounds after
+every op as the port does).  It also runs
 ``moe_apply_ep`` on a ``jax.sharding.Mesh((2, 4))`` of ("data", "model")
 (the constructor gives Auto axes; ``jax.make_mesh`` gives Explicit ones,
 on which the reference's own multi-device test fails on this jax), on x
@@ -49,12 +52,14 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # config's activation and parameter dtypes
 CASES = (("llama3-405b", ("f32", "pub")), ("grok-1-314b", ("f32", "pub")),
          ("granite-moe-1b-a400m", ("f32", "pub")), ("qwen2-7b", ("f32", "pub")),
-         ("qwen2-vl-7b", ("f32",)), ("qwen3-14b", ("f32",)), ("internlm2-20b", ("f32",)))
+         ("qwen2-vl-7b", ("f32",)), ("qwen3-14b", ("f32",)), ("internlm2-20b", ("f32",)),
+         ("mamba2-130m", ("f32",)), ("zamba2-2.7b", ("f32",)), ("whisper-tiny", ("f32",)))
 BATCH, PROMPT, MAX_LEN, STEPS = 4, 13, 20, 3
 EP = dict(experts=8, top_k=2, d=32, ff=64, x_shape=(4, 64, 32), drop_cf=1.0, free_cf=8.0)
 # the train references: (arch), the CLI's batches of B x T in two
 # microbatches (TokenPipeline seed 1), three steps at the port's tests' rate
-TRAIN_ARCHS = ("llama3-405b", "qwen2-7b", "granite-moe-1b-a400m", "qwen2-vl-7b")
+TRAIN_ARCHS = ("llama3-405b", "qwen2-7b", "granite-moe-1b-a400m", "qwen2-vl-7b",
+               "mamba2-130m", "zamba2-2.7b", "whisper-tiny")
 TRAIN = dict(batch=4, seq=16, micro=2, steps=3, seed=21,
              opt=dict(lr=3e-3, warmup_steps=2, total_steps=10))
 EP_AUX_COEF = 3.0         # the ep gradient's objective: sum(y * cot) + 3 aux
@@ -109,6 +114,8 @@ for arch_id, kinds in cfg["cases"]:
         if arch.family == "vlm":
             b, t = toks.shape
             batch["positions"] = jnp.broadcast_to(jnp.arange(t, dtype=jnp.int32), (3, b, t))
+        if arch.family == "encdec":
+            batch["frames"] = jnp.asarray(params[f"{arch_id}:frames"])
         lg, cache = jax.jit(lambda p, b: m.prefill(p, b, cfg["max_len"]),
                             compiler_options=strict)(p, batch)
         res[f"{tag}:prefill"] = np.asarray(lg, np.float32)
@@ -119,8 +126,9 @@ for arch_id, kinds in cfg["cases"]:
             lg, cache = dec(p, tok, cache)
             res[f"{tag}:decode{i}"] = np.asarray(lg, np.float32)
         res[f"{tag}:tok{cfg['steps']}"] = np.asarray(jnp.argmax(lg, -1)[:, None])
-        res[f"{tag}:k"] = np.asarray(cache.k, np.float32)
-        res[f"{tag}:v"] = np.asarray(cache.v, np.float32)
+        for name in cache._fields:
+            if name != "index":
+                res[f"{tag}:{name}"] = np.asarray(getattr(cache, name), np.float32)
 
 ep = cfg["ep"]
 mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4), ("data", "model"))
@@ -277,6 +285,9 @@ def inputs() -> dict:
         arch = registry.get_config(arch_id)
         out[f"{arch_id}:tokens"] = np.random.default_rng(12).integers(
             0, arch.smoke_model.vocab, (BATCH, PROMPT)).astype(np.int32)
+        if arch.family == "encdec":
+            out[f"{arch_id}:frames"] = np.random.default_rng(13).standard_normal(
+                (BATCH, PROMPT, arch.smoke_model.d_model)).astype(np.float32)
         for kind in kinds:
             cfg = arch.smoke_model
             if kind == "pub":
@@ -326,8 +337,11 @@ def _run(out: pathlib.Path) -> None:
 
 def train_batches(arch_id: str, model, device="cpu") -> list:
     """The train CLI's first ``TRAIN["steps"]`` batches of B x T for
-    ``model`` (``TokenPipeline`` seed 1, the VLM's positions), as torch
-    tensors on ``device``."""
+    ``model`` (``TokenPipeline`` seed 1, the VLM's positions; the encoder's
+    bfloat16 frames widened to float32, so both sides run it in float32),
+    as torch tensors on ``device``."""
+    import torch
+
     from repro_torch import data
     from repro_torch.configs import registry
     from repro_torch.launch import train
@@ -336,7 +350,8 @@ def train_batches(arch_id: str, model, device="cpu") -> list:
     pipe = data.TokenPipeline(data.TokenPipelineConfig(
         vocab=model.config.vocab, seq_len=TRAIN["seq"], global_batch=TRAIN["batch"], seed=1))
     get = train.make_batch_fn(model, arch.family, pipe, TRAIN["seq"], device)
-    return [get(i) for i in range(TRAIN["steps"])]
+    return [{k: v.float() if v.dtype == torch.bfloat16 else v for k, v in get(i).items()}
+            for i in range(TRAIN["steps"])]
 
 
 def train_model(arch_id: str, mesh=None):

@@ -1,16 +1,17 @@
 """One rank of the port's LM mesh over gloo, for ``test_torch_lm_mesh``
 and ``test_torch_lm_train_mesh``.
 
-    python tests/_torch_lm_mesh_worker.py OUT RANK WORLD [DATA MODEL]
+    python tests/_torch_lm_mesh_worker.py OUT RANK WORLD [DATA MODEL [KIND]]
 
 Started once per rank by a test.  It joins a gloo group of WORLD ranks
 through a ``FileStore`` in OUT (collectives time out after 60 s) as an LM
 mesh (``launch.mesh.init_lm_mesh``) and writes what it got to
 ``OUT/rank<RANK>.npz``: without DATA and MODEL a ``data 1 x model WORLD``
 mesh, one shard a rank, running ``scenarios`` (serving); with them a
-``DATA x MODEL`` mesh running ``train_scenarios``.  Torch runs on one
-thread.  The tests run the same scenarios on a one-process mesh for the
-comparison.
+``DATA x MODEL`` mesh running ``train_scenarios``, or with KIND
+``families`` ``family_scenarios`` (the hybrid, serving and training).
+Torch runs on one thread.  The tests run the same scenarios on a
+one-process mesh for the comparison.
 """
 from __future__ import annotations
 
@@ -88,8 +89,48 @@ def train_scenarios(mesh) -> dict:
     return out
 
 
+def family_scenarios(mesh) -> dict:
+    """zamba2-2.7b's smoke model (``fsdp_tp``: the Mamba2 layers' heads and
+    the shared block's over `model`) on ``mesh``: prefill and ``STEPS``
+    greedy decode steps, the ``Server`` greedy and sampled, and one train
+    step of two microbatches (its loss, gradient norm and the parameters
+    after it, gathered)."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed.sharding import logical_tree
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import Server
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_flatten
+
+    arch_id = "zamba2-2.7b"
+    arch = registry.get_config(arch_id)
+    out = {}
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (4, 9)))
+    model = steps.build_model(arch, smoke=True, mesh=mesh)
+    params = model.init(torch.Generator().manual_seed(3))
+    lg, cache = model.prefill(params, {"tokens": toks}, 16)
+    out["prefill"] = lg.gather().numpy()
+    for i in range(STEPS):
+        tok = lg.greedy()
+        out[f"tok{i}"] = tok.numpy()
+        lg, cache = model.decode_step(params, tok, cache)
+        out[f"decode{i}"] = lg.gather().numpy()
+    server = Server(arch_id, mesh=mesh, max_len=16, seed=5)
+    out["greedy"], _ = server.generate(toks.numpy(), 4)
+    out["sampled"], _ = server.generate(toks.numpy(), 4, temperature=0.8, seed=2)
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    state = steps.init_train_state(model, opt, torch.Generator().manual_seed(3))
+    step = steps.make_train_step(model, opt, 2, mesh=mesh, policy=arch.parallelism)
+    seq = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (4, 10)))
+    state, met = step(state, {"tokens": seq[:, :-1], "labels": seq[:, 1:]})
+    out["loss"], out["grad_norm"] = float(met["loss"]), float(met["grad_norm"])
+    names, leaves = tree_flatten(logical_tree(state.params))
+    out.update({f"param:{n}": t.numpy() for n, t in zip(names, leaves)})
+    return out
+
+
 def main(out: str, rank: str, world: str, data: str | None = None,
-         model: str | None = None) -> int:
+         model: str | None = None, kind: str = "train") -> int:
     from repro_torch.launch.mesh import init_lm_mesh
 
     torch.set_num_threads(1)
@@ -100,7 +141,8 @@ def main(out: str, rank: str, world: str, data: str | None = None,
                         device="cpu", store=store, rank=int(rank), world=int(world),
                         timeout_s=60.0)
     try:
-        got = train_scenarios(mesh) if train else scenarios(mesh)
+        got = (scenarios(mesh) if not train else
+               family_scenarios(mesh) if kind == "families" else train_scenarios(mesh))
         np.savez(out_dir / f"rank{rank}.npz", **got)
     finally:
         mesh.close()
@@ -108,4 +150,4 @@ def main(out: str, rank: str, world: str, data: str | None = None,
 
 
 if __name__ == "__main__":
-    sys.exit(main(*sys.argv[1:6]))
+    sys.exit(main(*sys.argv[1:7]))

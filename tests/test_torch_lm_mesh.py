@@ -160,8 +160,12 @@ def _full_cache(cache, cfg, mesh, policy: str, batch: int):
 
 
 def _mesh_cases():
+    """The transformer family's cases (``test_torch_lm_families_mesh``
+    holds the other families')."""
     out = []
     for arch_id, kinds in R.CASES:
+        if registry.get_config(arch_id).family not in model_zoo.TRANSFORMER_FAMILIES:
+            continue
         policy = registry.get_config(arch_id).parallelism
         for kind in kinds:
             for shape in ((1, 2), (1, 4)) + (((2, 2),) if policy == "fsdp" else ()):
@@ -375,15 +379,21 @@ def test_mesh_forward_and_the_ep_a2a_prefill():
 
 
 def test_server_refusals_and_cli(capsys, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve.Server("mamba2-130m", model_parallel=2, device=CPU)
+    prompts = np.random.default_rng(3).integers(0, 256, (2, 5)).astype(np.int32)
+    sv = serve.Server("mamba2-130m", model_parallel=2, max_len=12, device=CPU)   # serves
+    np.testing.assert_array_equal(sv.generate(prompts, 4)[0], serve.Server(
+        "mamba2-130m", max_len=12, device=CPU).generate(prompts, 4)[0])
     mesh = lm.make_lm_mesh(2, device=CPU)
     with pytest.raises(ValueError, match="mesh.device"):
         serve.Server("qwen2-7b", mesh=mesh, device=CPU)
     with pytest.raises(ValueError, match="disagrees"):
         serve.Server("qwen2-7b", mesh=mesh, model_parallel=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        model_zoo.build(registry.get_config("whisper-tiny").smoke_model, "encdec", mesh=mesh)
+    whisper = model_zoo.build(registry.get_config("whisper-tiny").smoke_model, "encdec",
+                              mesh=mesh)                                           # builds
+    mp = whisper.init(torch.Generator().manual_seed(0))
+    lg, cache = whisper.prefill(mp, {"tokens": torch.from_numpy(prompts).long(),
+                                     "frames": serve.stub_frames(2, 5, 48, CPU)}, 8)
+    assert tuple(lg.gather().shape) == (2, 256) and cache.index == 5
     rc = serve.main(["--arch", "grok-1-314b", "--requests", "4", "--batch", "2",
                      "--prompt-len", "6", "--max-new", "3", "--model-parallel", "2",
                      "--device", CPU])

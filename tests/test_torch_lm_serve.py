@@ -101,11 +101,12 @@ def test_server_batch_sampling_and_limits():
     assert ((a >= 0) & (a < server.vocab)).all()
     with pytest.raises(IndexError):   # prompt + continuation beyond max_len
         server.generate(prompts, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):   # the ssm family on a mesh
-        serve.Server("mamba2-130m", model_parallel=2, device=CPU)
-    # the ssm family (ported since) builds and serves
+    # the ssm family builds and serves, on one shard and on a mesh alike
     toks, _ = serve.Server("mamba2-130m", max_len=12, device=CPU).generate(prompts, 6)
     assert toks.shape == (2, 6) and ((toks >= 0) & (toks < 256)).all()
+    toks_m, _ = serve.Server("mamba2-130m", model_parallel=2, max_len=12,
+                             device=CPU).generate(prompts, 6)
+    np.testing.assert_array_equal(toks_m, toks)
 
 
 def test_cli_main_serves_on_the_cpu(capsys):

@@ -524,10 +524,14 @@ def test_guard_stop_and_resume_equal_an_uninterrupted_run(tmp_path, monkeypatch,
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 
-def test_train_cli_refuses_model_parallel():
-    """The ssm family on a mesh is not ported: ``--model-parallel 2`` for
-    mamba2-130m raises, naming the roadmap (the transformer family trains
-    on the mesh: ``tests/test_torch_lm_train_mesh.py``)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md section 1"):
-        t_train.main(["--arch", "mamba2-130m", "--smoke", "--model-parallel", "2",
-                      "--device", CPU])
+def test_train_cli_trains_the_ssm_family_on_a_mesh():
+    """``--model-parallel 2`` for mamba2-130m trains on the mesh: its
+    losses are the one-shard run's within 1e-6 relative (every family
+    trains on the mesh: ``tests/test_torch_lm_families_mesh.py``)."""
+    argv = ["--arch", "mamba2-130m", "--smoke", "--steps", "2", "--batch", "2", "--seq", "8",
+            "--device", CPU]
+    one = t_train.run(argv)
+    two = t_train.run(argv + ["--model-parallel", "2"])
+    assert two["state"].params.mesh.model == 2 and len(two["losses"]) == 2
+    for a, b in zip(two["losses"], one["losses"]):
+        assert abs(a - b) <= 1e-6 * abs(b)
